@@ -1,0 +1,88 @@
+"""Build and bind the port's CUDA kernels (ops/csrc/*.cu).
+
+nvcc compiles every source under ops/csrc/ into one shared library with
+a plain C interface, bound with ctypes: no PyTorch headers, so a cold
+build takes seconds. The library is keyed on a hash of the sources and
+flags, written to a temp file and renamed into build/torch_kernels/, so
+concurrent builds never load a half-written file. Nothing is built at
+import: ``load()`` builds at first use and raises, with the compiler's
+stderr, when nvcc is missing or the build fails.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parent.parent.parent / "build" / "torch_kernels"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+#: ptxas's report (registers, spills) of the last build this process ran
+BUILD_LOG = ""
+
+_lib = None
+
+
+def _sources() -> list[Path]:
+    return sorted(p for p in CSRC.iterdir() if p.suffix in (".cu", ".cuh"))
+
+
+def _nvcc() -> str:
+    nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    if not os.access(nvcc, os.X_OK):
+        raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA "
+                           "toolkit (PATH or /usr/local/cuda/bin)")
+    return nvcc
+
+
+def build() -> Path:
+    """Compile the kernels unless a library for these sources exists."""
+    global BUILD_LOG
+    srcs = _sources()
+    key = hashlib.sha256()
+    for p in srcs:
+        key.update(p.name.encode() + b"\0" + p.read_bytes())
+    key.update(" ".join(NVCC_FLAGS).encode())
+    lib_path = BUILD_DIR / f"libflagstats_kernels_{key.hexdigest()[:16]}.so"
+    if lib_path.exists():
+        return lib_path
+    nvcc = _nvcc()
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    os.close(fd)
+    try:
+        cmd = [nvcc, *NVCC_FLAGS, "-o", tmp,
+               *(str(p) for p in srcs if p.suffix == ".cu")]
+        r = subprocess.run(cmd, capture_output=True, text=True)
+        if r.returncode != 0:
+            raise RuntimeError(f"nvcc failed (rc={r.returncode}):\n{r.stderr}")
+        BUILD_LOG = r.stderr
+        os.replace(tmp, lib_path)
+    finally:
+        if os.path.exists(tmp):
+            os.unlink(tmp)
+    return lib_path
+
+
+def load() -> ctypes.CDLL:
+    """The bound kernel library, built at first use."""
+    global _lib
+    if _lib is None:
+        lib = ctypes.CDLL(str(build()))
+        lib.lfs_stream_sums.argtypes = [ctypes.c_int, ctypes.c_void_p,
+                                        ctypes.c_int64, ctypes.c_void_p,
+                                        ctypes.c_void_p]
+        lib.lfs_stream_sums.restype = ctypes.c_int
+        lib.lfs_wave_blocks.argtypes = [ctypes.c_int,
+                                        ctypes.POINTER(ctypes.c_int)]
+        lib.lfs_wave_blocks.restype = ctypes.c_int
+        lib.lfs_words_per_block.argtypes = []
+        lib.lfs_words_per_block.restype = ctypes.c_int
+        _lib = lib
+    return _lib

@@ -1,0 +1,186 @@
+"""Size-tiered dispatch: the one-call entry points of the port.
+
+The counterpart of ``libflagstats_tpu.ops.dispatch`` (itself the
+counterpart of FLAGSTATS_get_function / FLAGSTATS_u16, reference:
+libflagstats.h:2977-3070). The backend probe is
+``torch.cuda.is_available()``, and the tiers are
+
+  words on a CUDA device, or a CUDA ``device`` -> the bit-sliced CUDA kernel
+  n >= CONFIG.cuda_min and a CUDA device       -> the bit-sliced CUDA kernel
+  otherwise                                    -> host numpy oracle
+
+No shape bucketing: the TPU path padded to a ladder of shapes to bound
+XLA recompiles, and a CUDA kernel does not recompile per shape. The
+kernel masks its own ragged edge, so nothing is padded on the host.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .. import flags as F
+from ..config import CONFIG
+from ..oracle import flagstat_numpy
+from .kernels import flagstat_cuda, pospopcnt_u16_cuda
+from .torch_ops import as_words, flagstat_torch, pospopcnt_u16_torch
+
+#: implementation registry
+FLAGSTAT_IMPLS = {
+    "numpy": "host vectorized mask-select oracle (FLAGSTAT_scalar tier)",
+    "torch": "packed-SWAR word transform + positional reduce in plain torch, "
+             "on any device",
+    "cuda": "bit-sliced register transpose + popcount CUDA kernel (sm_90a)",
+    "cuda_report": "the same kernel counting the 21 report streams only "
+                   "(masked-positional counters are 0)",
+}
+POSPOPCNT_IMPLS = {
+    "numpy": "host per-bit count",
+    "torch": "packed-SWAR shift-mask-reduce in plain torch",
+    "cuda": "bit-sliced register transpose + popcount CUDA kernel (sm_90a)",
+}
+
+#: one device call counts at most this many words; the entry points split
+#: longer streams into accumulating sub-calls. Exact by the block-
+#: accumulative contract (reference: benchmark/flagstats.cpp:311-332):
+#: counter 9 is derived per chunk as chunk_len - chunk_fail. It bounds
+#: one call's device buffer and keeps every per-thread 32-bit tally of
+#: the kernel far from wrapping. Module-level so tests can monkeypatch it.
+DEVICE_WORD_CAP = 0x7FFFFFFF
+
+
+def auto_impl(n_len: int, device=None) -> str:
+    """The flagstat tier for one call of ``n_len`` words; ``device`` is
+    where the words lie or are asked to be counted, if anywhere."""
+    if device is not None and torch.device(device).type == "cuda":
+        return "cuda"
+    if n_len >= CONFIG.cuda_min and torch.cuda.is_available():
+        return "cuda"
+    return "numpy"
+
+
+def pospopcnt_auto_impl(n_len: int, device=None) -> str:
+    """The pospopcnt tier for one call of ``n_len`` words (the flagstat
+    rule until a crossover on the card says otherwise)."""
+    return auto_impl(n_len, device)
+
+
+def _target_device(impl: str, device, words: torch.Tensor) -> torch.device:
+    """Where a device tier computes: ``device`` if given; else the
+    words' own device for "torch" or for words already on a CUDA device;
+    else the CUDA device. Raises when that is a CUDA device and none is
+    available: the kernel tiers never fall back to the plain version."""
+    if device is None:
+        device = words.device if impl == "torch" or words.device.type == "cuda" \
+            else "cuda"
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"impl {impl!r} was asked to count on {device}, "
+                           "and no CUDA device is available")
+    return device
+
+
+def _host_counts(t: torch.Tensor) -> np.ndarray:
+    return t.cpu().numpy().astype(np.uint64)
+
+
+def _host_words(words) -> np.ndarray:
+    if isinstance(words, torch.Tensor):
+        return words.cpu().numpy().view(np.uint16)
+    return words
+
+
+def get_function(n_len: int, impl: str | None = None, device=None):
+    """A callable (uint16 words: numpy array or tensor) -> (32,) uint64
+    counters for streams of length ``n_len`` (reference:
+    FLAGSTATS_get_function, libflagstats.h:2977)."""
+    if impl is None:
+        impl = auto_impl(n_len, device)
+    if impl == "numpy":
+        return lambda arr: flagstat_numpy(_host_words(_validate_u16(arr)))
+    if impl not in FLAGSTAT_IMPLS:
+        raise ValueError(f"unknown impl {impl!r}")
+
+    def run(arr):
+        words = as_words(_validate_u16(arr))
+        words = words.to(_target_device(impl, device, words))
+        if impl == "torch":
+            return _host_counts(flagstat_torch(words))
+        return _host_counts(flagstat_cuda(words, report=impl == "cuda_report"))
+
+    return run
+
+
+def _device_chunks(words, granule: int = 8):
+    """Views of ``words`` within DEVICE_WORD_CAP each; the chunk step is a
+    multiple of ``granule`` words, so a 16-byte aligned stream stays
+    16-byte aligned in every chunk."""
+    n = len(words)
+    if n <= DEVICE_WORD_CAP:
+        yield words
+        return
+    step = max(DEVICE_WORD_CAP // granule, 1) * granule
+    for start in range(0, n, step):
+        yield words[start:start + step]
+
+
+def _validate_u16(array):
+    """The words of ``array`` as a flat uint16 numpy array, or, for a
+    tensor, as a flat contiguous int16 view on its own device."""
+    if isinstance(array, torch.Tensor):
+        return as_words(array.contiguous())
+    arr = np.asarray(array)
+    if arr.dtype != np.uint16:
+        # allow lossless integer input; reject anything that would be a
+        # silent value-mangling cast
+        if arr.dtype.kind not in "ui" or (arr.size and
+                                          (arr.min() < 0 or arr.max() > 0xFFFF)):
+            raise ValueError(
+                f"FLAG array must be uint16 (or losslessly convertible), "
+                f"got {arr.dtype}"
+            )
+        arr = arr.astype(np.uint16)
+    return np.ascontiguousarray(arr).ravel()
+
+
+def _where(words, device):
+    if device is not None:
+        return device
+    return words.device if isinstance(words, torch.Tensor) else None
+
+
+def flagstats_u16(array, out=None, impl: str | None = None, device=None) -> np.ndarray:
+    """Count flagstat statistics of a uint16 FLAG column -> (32,) uint64.
+
+    ``array``: a numpy array or a torch tensor (uint16, or its int16
+    view). Accumulates into ``out`` when given (reference: FLAGSTATS_u16,
+    libflagstats.h:3025). ``device`` picks where a device tier computes.
+    Streams past DEVICE_WORD_CAP are split into accumulating sub-calls,
+    each with its own true length for the derived pass total."""
+    words = _validate_u16(array)
+    if impl is None:
+        impl = auto_impl(len(words), _where(words, device))
+    fn = get_function(len(words), impl, device)
+    acc = np.zeros(F.N_COUNTERS, dtype=np.uint64) if out is None else out
+    for chunk in ([words] if impl == "numpy" else _device_chunks(words)):
+        acc += fn(chunk)
+    return acc
+
+
+def pospopcnt_u16(array, impl: str | None = None, device=None) -> np.ndarray:
+    """Positional popcount of a uint16 array -> (16,) uint64
+    (reference: STORM_pospopcnt_u16, libalgebra.h:3497)."""
+    words = _validate_u16(array)
+    if impl is None:
+        impl = pospopcnt_auto_impl(len(words), _where(words, device))
+    if impl not in POSPOPCNT_IMPLS:
+        raise ValueError(f"unknown impl {impl!r}")
+    if impl == "numpy":
+        x = _host_words(words).astype(np.uint32)
+        return np.array([np.count_nonzero((x >> k) & 1) for k in range(F.N_BITS)],
+                        dtype=np.uint64)
+    fn = pospopcnt_u16_torch if impl == "torch" else pospopcnt_u16_cuda
+    acc = np.zeros(F.N_BITS, dtype=np.uint64)
+    for chunk in _device_chunks(words):
+        w = as_words(chunk)
+        acc += _host_counts(fn(w.to(_target_device(impl, device, w))))
+    return acc
