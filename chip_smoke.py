@@ -5,22 +5,33 @@ Run from the repository root, with no arguments:
 
     python3 chip_smoke.py
 
-It builds the CUDA kernels from ops/csrc/ (into build/torch_kernels/),
-holds every kernel mode against its plain torch version and the host
-oracles at edge sizes, drives the public entry points at full scale
-(64Mi full-range words, and the 824,541,892-word synthetic NA12878
-column), times each kernel against its plain version with CUDA events,
-and prints one JSON line of kernel results, the card's name and power
-limit, and last, one JSON line {"ok": true, "device": {...}}. Any failed
-phase raises, and the script exits nonzero with no result line. It
-imports no jax and nothing of libflagstats_tpu.
+It builds the CUDA kernels from ops/csrc/ (into build/torch_kernels/)
+and the native host library (into build/torch_host/), holds every
+kernel against its plain torch version and the host oracles at edge
+sizes, drives the public entry points at full scale (64Mi full-range
+words, the 824,541,892-word synthetic NA12878 column, and that column
+written as a framed LZ4 file of ~1 GB in a temporary directory and
+streamed back through flagstat_stream), times each kernel against its
+plain version with CUDA events, and prints one JSON line of kernel
+results, the card's name and power limit, and last, one JSON line
+{"ok": true, "device": {...}}. Any failed phase raises, and the script
+exits nonzero with no result line. It imports no jax and nothing of
+libflagstats_tpu.
+
+Each ported path is driven with the launch counts set to 0 just before
+it and read just after: phase 4 (a-d) the in-memory entry points, phase
+4 (e, f) the streaming device path.
 """
 from __future__ import annotations
 
+import concurrent.futures as cf
 import json
+import os
 import statistics
+import struct
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -28,7 +39,12 @@ import torch
 
 import libflagstats_tpu_torch as L
 from libflagstats_tpu_torch import flags as F
+from libflagstats_tpu_torch.bench.profiling import SectionTimer
+from libflagstats_tpu_torch.config import CONFIG
 from libflagstats_tpu_torch.datasets import na12878_report_values, synth_na12878
+from libflagstats_tpu_torch.io import codec as C
+from libflagstats_tpu_torch.io import native_lib
+from libflagstats_tpu_torch.io.stream import StreamCheckpoint
 from libflagstats_tpu_torch.ops import bitslice as B
 from libflagstats_tpu_torch.ops import cuda_build
 from libflagstats_tpu_torch.ops import dispatch as D
@@ -37,8 +53,13 @@ from libflagstats_tpu_torch.ops.torch_ops import assemble_counters
 from libflagstats_tpu_torch.oracle import flagstat_numpy, generate_flags
 
 WORDS_64MI = 64 << 20
+GW = K.GROUP_WORDS
 SOURCE = "libflagstats_tpu_torch/ops/csrc/flagstat_kernels.cu"
+PRE_SOURCE = "libflagstats_tpu_torch/ops/csrc/flagstat_pre_kernels.cu"
 REPLACES = "libflagstats_tpu/ops/pallas_kernels.py:403"
+#: K2's layouts: (name, report, packed)
+PRE_LAYOUTS = (("full 32 rows", False, False), ("report 32 rows", True, False),
+               ("full 24 rows", False, True), ("report 20 rows", True, True))
 REPORT_ZEROS = [1, 3, 4, 5, 17, 19, 20, 21]
 NA12878_SKIP = [F.FREVERSE_OFF, F.FMREVERSE_OFF, 16 + F.FREVERSE_OFF, 16 + F.FMREVERSE_OFF]
 
@@ -108,6 +129,72 @@ def check_kernels(max_err: dict) -> None:
     for mode in K.MODES:
         print(f"kernel {mode}: {cases[mode]} cases, kernel = plain = oracle "
               f"exactly (max_abs_err {max_err[mode]})")
+
+
+def check_host_library(build_seconds: float) -> None:
+    """Phase 2b: the native host library built, and its packed transpose
+    is byte-identical to the numpy spec."""
+    if native_lib.load() is None:
+        raise RuntimeError(f"the native host library did not build:\n{native_lib.BUILD_ERROR}")
+    gxx = subprocess.run(["g++", "--version"], capture_output=True, text=True,
+                         check=True, timeout=60).stdout.splitlines()[0]
+    header = ("the system <zstd.h>" if native_lib.ZSTD_ROUTE == "system"
+              else "libflagstats_tpu_torch/io/csrc/compat/zstd.h, -l:libzstd.so.1")
+    print(f"host library built in {build_seconds:.2f} s by {gxx}; zstd: "
+          f"{native_lib.ZSTD_ROUTE} ({header})")
+    sizes = (1, 65_537, 8 * GW - 4_321)
+    for n in sizes:
+        x = generate_flags(n, seed=n, full_range=True)
+        full = B.pretranspose_host_np(x)
+        assert np.array_equal(B.pretranspose_host(x), full), n
+        for report in (False, True):
+            rows = K.packed_rows_for(report)
+            assert np.array_equal(B.pretranspose_host_packed(x, rows),
+                                  full[:, list(rows)]), (n, report)
+    print(f"native bit transpose (32 rows, packed 24 and 20) = pretranspose_host_np "
+          f"byte for byte at {sizes} words")
+
+
+def check_pre_kernel(max_err: dict) -> None:
+    """Phase 3b: K2 = plain = host oracle, exactly, in every layout."""
+    wave = max(K.pre_wave_groups(r, p) for _, r, p in PRE_LAYOUTS)
+    counts = [0, 1, 2, 7, 8, 9, 129, wave + 1]
+    kinds = ["flags<4096", "full16bit", "all 0xFFFF", "all 0x0FFF", "all zero"]
+    print(f"K2: one wave of blocks covers {wave} groups; largest count {counts[-1]}")
+    cases = 0
+    for g in counts:
+        n = max(g * GW - 777, 0)   # a ragged last group: zero words pad it
+        for kind in kinds:
+            x = make_words(kind, n)
+            ref = flagstat_numpy(x).astype(np.int64)
+            for name, report, packed in PRE_LAYOUTS:
+                rows = K.packed_rows_for(report) if packed else tuple(range(32))
+                planes = torch.from_numpy(B.pretranspose_host_packed(x, rows)).cuda()
+                assert planes.shape[0] == g
+                inputs = [("whole", planes, n)]
+                if g == 9 and kind == "full16bit":
+                    inputs.append(("planes[1:]", planes[1:], n - GW))
+                for label, t, nt in inputs:
+                    before = dict(K.LAUNCHES)
+                    got = K.stream_sums_pre_cuda(t, report, packed)
+                    plain = K.stream_sums_pre_plain(t, report, packed)
+                    torch.cuda.synchronize()
+                    key = "pre_report" if report else "pre"
+                    assert K.LAUNCHES[key] == before[key] + (g > 0), (name, g)
+                    err = int((got - plain).abs().max())
+                    max_err[key] = max(max_err[key], err)
+                    where = (name, g, kind, label)
+                    assert err == 0, (where, got.tolist(), plain.tolist())
+                    c = counters_from_sums(got, "flagstat_report" if report else "flagstat", nt)
+                    want = ref if label == "whole" else flagstat_numpy(x[GW:]).astype(np.int64)
+                    idx = list(F.REPORT_COUNTERS) if report else list(range(32))
+                    assert (c[idx] == want[idx]).all(), (where, c, want)
+                    if report:
+                        assert (c[REPORT_ZEROS] == 0).all(), where
+                    cases += 1
+    print(f"K2: {cases} cases ({len(PRE_LAYOUTS)} layouts x group counts {counts} x "
+          f"{len(kinds)} kinds, and planes[1:] of a CUDA tensor), kernel = plain = "
+          f"oracle exactly (max_abs_err {max_err})")
 
 
 def launched(before: dict, mode: str) -> None:
@@ -190,6 +277,80 @@ def drive_main_path() -> dict:
     return arr
 
 
+def check_stream(path, label: str, impl: str, report: bool, card: str, want_report) -> None:
+    """One streamed count of the NA12878 file, twice: the report must be
+    want_report both times."""
+    want = na12878_report_values(1)
+    for run in (1, 2):
+        timer = SectionTimer()
+        t0 = time.perf_counter()
+        c = L.flagstat_stream(path, "lz4", impl=impl, report=report, timer=timer)
+        wall = time.perf_counter() - t0
+        rep = L.counters_to_report(c)
+        assert {k: getattr(rep, k)[0] for k in want} == want, (label, rep)
+        assert all(getattr(rep, k)[1] == 0 for k in want), (label, rep)
+        assert rep == want_report, (label, rep)
+        n = int(c[F.FQCFAIL_OFF] + c[16 + F.FQCFAIL_OFF])
+        print(f"[{card}] flagstat_stream {label} run {run}: {wall:.3f} s wall, "
+              f"{n / wall / 1e9:.3f} Gwords/s; sections:")
+        for line in timer.report().splitlines():
+            print(f"    {line}")
+
+
+def drive_stream_path(na_words: np.ndarray, card: str) -> None:
+    """Phase 4 (e, f): the streaming device path at full width."""
+    seen = dict(K.LAUNCHES)
+    x = generate_flags(WORDS_64MI, seed=7, full_range=True)
+    ref = flagstat_numpy(x)
+    c = L.flagstats_u16(x, impl="cuda_pre")
+    launched(seen, "pre")
+    assert (c == ref).all(), (c, ref)
+    print("main path (e): flagstats_u16(impl='cuda_pre') on 64Mi full-range words = oracle")
+
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "na12878.lz4")
+        t0 = time.perf_counter()
+        info = C.write_framed(path, na_words, "lz4", level=1)
+        print(f"NA12878 as framed LZ4 (level 1): {info.n_blocks} blocks, "
+              f"{info.raw_bytes} -> {info.compressed_bytes} bytes (ratio "
+              f"{info.raw_bytes / info.compressed_bytes:.3f}), written in "
+              f"{time.perf_counter() - t0:.2f} s")
+        want_report = L.counters_to_report(L.flagstats_u16(na_words, impl="native"))
+        launched_by = (("cuda_pre", "cuda_pre", False, "pre"),
+                       ("cuda_pre report=True", "cuda_pre", True, "pre_report"),
+                       ("cuda", "cuda", False, "flagstat"),
+                       ("native", "native", False, None))
+        for label, impl, report, mode in launched_by:
+            check_stream(path, label, impl, report, card, want_report)
+            if mode:
+                launched(seen, mode)
+        print("main path (f): flagstat_stream over the NA12878 LZ4 file: cuda_pre, "
+              "cuda_pre report=True, cuda and native reports = na12878_report_values(1)")
+
+        # an interrupted, checkpointed run on a truncated copy, resumed on
+        # the whole file (blocks of 8 groups = one chunk, so every block
+        # boundary can checkpoint)
+        path64 = os.path.join(tmp, "x64.lz4")
+        C.write_framed(path64, x, "lz4", level=1, block_bytes=2 * 8 * GW)
+        part = os.path.join(tmp, "part.lz4")
+        with open(part, "wb") as f:
+            for raw_len, payload in list(C.iter_framed(path64))[:72]:
+                f.write(struct.pack("<ii", raw_len, len(payload)))
+                f.write(payload)
+        ck_path = os.path.join(tmp, "ck.npz")
+        L.flagstat_stream(part, "lz4", impl="cuda_pre", chunk_words=8 * GW,
+                          checkpoint=StreamCheckpoint(ck_path, every_blocks=16))
+        ck = StreamCheckpoint(ck_path, every_blocks=16)
+        assert ck.kind == "sums" and ck.block_index == 64 and ck.n_words == 64 * 8 * GW, \
+            (ck.kind, ck.block_index, ck.n_words)
+        got = L.flagstat_stream(path64, "lz4", impl="cuda_pre", chunk_words=8 * GW,
+                                checkpoint=ck)
+        launched(seen, "pre")
+        assert (got == ref).all(), (got, ref)
+        print("main path (f): checkpoint after 64 of 72 blocks of a truncated 64Mi "
+              "file, resumed on all 128 blocks = oracle")
+
+
 def median_ms(fn, runs: int, reps: int) -> float:
     """Median over ``runs`` of the CUDA-event time of ``reps`` calls, per call.
     A spin kernel first lets the host queue the calls ahead of the card."""
@@ -233,6 +394,37 @@ def time_kernels(na_words: np.ndarray, card: str) -> dict:
     return times
 
 
+def time_pre_kernel(na_words: np.ndarray, card: str) -> dict:
+    """Phase 5b: K2 against its plain version on packed tiles, CUDA
+    events, median of runs; and the pinned copy of one stream chunk."""
+    times = {}
+    x64 = generate_flags(WORDS_64MI, seed=11, full_range=True)
+    for label, words in (("64Mi", x64), ("NA12878", na_words)):
+        for report in (False, True):
+            t = torch.from_numpy(B.pretranspose_host_packed(
+                words, K.packed_rows_for(report))).cuda()
+            nbytes = t.numel() * 4
+            ms = median_ms(lambda: K.stream_sums_pre_cuda(t, report, True), 7, 10)
+            plain_ms = median_ms(lambda: K.stream_sums_pre_plain(t, report, True), 5, 1)
+            times[(label, report)] = (ms, plain_ms)
+            for name, v in (("kernel", ms), ("plain", plain_ms)):
+                print(f"[{card}] {label} K2 {'report' if report else 'flagstat'} "
+                      f"{t.shape[1]} rows x {t.shape[0]} groups {name}: {v:.4f} ms, "
+                      f"{words.size / v / 1e6:.4g} Gwords/s, {nbytes / v / 1e6:.1f} GB/s read")
+            del t
+    # for information: what one default stream chunk costs to copy
+    chunk = CONFIG.stream_chunk_words
+    for name, shape, dtype in (("packed planes (24 rows)", (chunk // GW, 24, 8, 128), torch.int32),
+                               ("raw words", (chunk,), torch.int16)):
+        host = torch.zeros(shape, dtype=dtype, pin_memory=True)
+        dev = torch.empty(shape, dtype=dtype, device="cuda")
+        ms = median_ms(lambda: dev.copy_(host, non_blocking=True), 7, 5)
+        nbytes = host.numel() * host.element_size()
+        print(f"[{card}] pinned H2D of one {chunk}-word stream chunk as {name}: "
+              f"{nbytes} bytes, {ms:.4f} ms, {nbytes / ms / 1e6:.1f} GB/s")
+    return times
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise RuntimeError("chip_smoke needs a CUDA device; torch sees none")
@@ -240,25 +432,44 @@ def main() -> int:
     print(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"{torch.cuda.get_device_name(0)}")
 
-    t0 = time.perf_counter()
-    path = cuda_build.build()
-    cuda_build.load()
-    print(f"built {path.name} in {time.perf_counter() - t0:.2f} s")
+    def timed_host_build():
+        t0 = time.perf_counter()
+        native_lib.load()
+        return time.perf_counter() - t0
+
+    # the host library (g++) builds while nvcc builds the kernels
+    with cf.ThreadPoolExecutor(1) as pool:
+        host_build = pool.submit(timed_host_build)
+        t0 = time.perf_counter()
+        path = cuda_build.build()
+        cuda_build.load()
+        print(f"built {path.name} in {time.perf_counter() - t0:.2f} s")
+        host_seconds = host_build.result()
     for line in cuda_build.BUILD_LOG.splitlines():
-        if "registers" in line or "spill" in line:
+        if line.endswith(".cu:") or "registers" in line or "spill" in line:
             print("  ptxas:", line.strip())
+    check_host_library(host_seconds)
 
-    max_err = dict.fromkeys(K.MODES, 0)
+    max_err = dict.fromkeys(K.MODES + K.PRE_MODES, 0)
     check_kernels(max_err)
+    check_pre_kernel(max_err)
 
-    for mode in K.MODES:
+    for mode in K.LAUNCHES:
         K.LAUNCHES[mode] = 0
     na_words = drive_main_path()
     launches = dict(K.LAUNCHES)
-    print(f"main-path launches: {launches}")
+    print(f"main-path launches (phase 4 a-d): {launches}")
     assert all(launches[m] > 0 for m in K.MODES), launches
 
+    for mode in K.LAUNCHES:
+        K.LAUNCHES[mode] = 0
+    drive_stream_path(na_words, card)
+    stream_launches = dict(K.LAUNCHES)
+    print(f"streaming-path launches (phase 4 e-f): {stream_launches}")
+    assert all(stream_launches[m] > 0 for m in K.PRE_MODES), stream_launches
+
     times = time_kernels(na_words, card)
+    pre_times = time_pre_kernel(na_words, card)
     assert "jax" not in sys.modules and "libflagstats_tpu" not in sys.modules
 
     kernels = [{
@@ -271,6 +482,17 @@ def main() -> int:
         "ms": times[("64Mi", mode)][0],
         "plain_ms": times[("64Mi", mode)][1],
     } for mode in K.MODES]
+    kernels += [{
+        "name": f"stream_sums_pre_kernel<{'report' if report else 'flagstat'},"
+                f"{len(K.packed_rows_for(report))}>",
+        "route": "cuda",
+        "source": PRE_SOURCE,
+        "replaces": REPLACES,
+        "launches": stream_launches[key],
+        "max_abs_err": max_err[key],
+        "ms": pre_times[("64Mi", report)][0],
+        "plain_ms": pre_times[("64Mi", report)][1],
+    } for key, report in zip(K.PRE_MODES, (False, True))]
     print(json.dumps({"kernels": kernels}))
     print(card)  # as nvidia-smi --query-gpu=name,power.limit prints it
     print(json.dumps({"ok": True, "device": {

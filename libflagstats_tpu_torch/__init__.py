@@ -11,6 +11,8 @@ Public API:
   pospopcnt_u16(arr)       16-bin positional popcount (libalgebra.h:3497)
   get_function(n, impl)    the counting callable of one tier
   counters_to_report(c)    samtools flagstat report object
+  flagstat_stream(path)    streaming flagstat of a framed LZ4/Zstd file
+                           (io/stream.py)
 """
 from __future__ import annotations
 
@@ -22,6 +24,7 @@ from .flags import (  # noqa: F401
     FREAD1, FREAD2, FSECONDARY, FQCFAIL, FDUP, FSUPPLEMENTARY,
     BIT12, BIT13, BIT14,
 )
+from .io.stream import flagstat_stream  # noqa: F401
 from .ops.dispatch import flagstats_u16, get_function, pospopcnt_u16  # noqa: F401
 from .report import FlagstatReport, counters_to_dict, counters_to_report  # noqa: F401
 

@@ -1,10 +1,14 @@
 """Bit-sliced flagstat: shared model, constants, and NumPy reference.
 
-A copy of ``libflagstats_tpu.ops.bitslice`` without the host pretranspose
-(``pretranspose_host*``, which feeds the pre-transposed kernel the port
-does not have yet); tests/test_torch_modules.py holds the two equal. The
-port's plain twin (ops/kernels.py) runs this exact discipline in torch;
-the CUDA kernel (ops/csrc/flagstat_kernels.cu) counts the same streams.
+A copy of ``libflagstats_tpu.ops.bitslice``; tests/test_torch_modules.py
+holds the constant tables and the numpy spec equal, and
+tests/test_torch_pretranspose.py the host pretranspose byte for byte.
+The port's plain twins (ops/kernels.py) run this exact discipline in
+torch; the CUDA kernels (ops/csrc/flagstat_kernels.cu over raw words,
+ops/csrc/flagstat_pre_kernels.cu over the pretransposed plane tiles
+made here) count the same streams. The pretranspose functions may write
+into a caller's ``out`` buffer, so the stream transposes straight into
+pinned host memory.
 
 This module defines the counting discipline of the Pallas kernels,
 re-designed from the reference's AVX-512 Harley-Seal machinery
@@ -38,9 +42,12 @@ pass[9] = n - C[9] (derived, reference: libflagstats.h:429).
 """
 from __future__ import annotations
 
+import ctypes
+
 import numpy as np
 
 from .. import flags as F
+from ..io import native_lib
 
 # ---- transpose network constants ----
 # Masked-swap stages (j, mask) of the classic transpose32 network, with
@@ -209,6 +216,101 @@ def flagstat_bitsliced_np(array: np.ndarray) -> np.ndarray:
             counters[k] = csum[k] - fsum[k]
             counters[16 + k] = fsum[k]
     return counters
+
+
+def _pad_groups(arr) -> np.ndarray:
+    """Flat uint16 words zero-padded to whole 64Ki-word groups (zero
+    padding is count-neutral)."""
+    arr = np.ascontiguousarray(np.asarray(arr, dtype=np.uint16)).ravel()
+    pad = (-arr.size) % (32 * 16 * 128)
+    if pad:
+        arr = np.concatenate([arr, np.zeros(pad, dtype=np.uint16)])
+    return arr
+
+
+def _out_tiles(out, groups: int, n_rows: int) -> np.ndarray:
+    """``out``, checked to be what the native transpose writes through a
+    raw pointer, or a new (groups, n_rows, 8, 128) uint32 array."""
+    shape = (groups, n_rows, 8, 128)
+    if out is None:
+        return np.empty(shape, dtype=np.uint32)
+    if (out.shape != shape or out.dtype != np.uint32
+            or not out.flags["C_CONTIGUOUS"] or not out.flags["WRITEABLE"]):
+        raise ValueError(f"out must be a writable C-contiguous uint32 array "
+                         f"of shape {shape}, got {out.dtype} {out.shape}")
+    return out
+
+
+def pretranspose_host_np(arr: np.ndarray) -> np.ndarray:
+    """Host-side bit transpose: uint16 stream -> (groups, 32, 8, 128)
+    uint32 plane tiles, byte-identical to what the in-kernel transpose
+    produces after its uint16 -> uint32 sublane pairing + masked-swap
+    network.
+
+    This is the NumPy reference for the AVX2 implementation in
+    libflagstats_tpu/io/native/flagstats_io.cpp (lfs_bit_transpose); the
+    pretransposed kernel (K2) consumes this format and does no
+    transpose.
+    """
+    arr = _pad_groups(arr)
+    t = arr.reshape(-1, 32, 16, 128)
+    # sublane pairing: row 2s = low half, row 2s+1 = high half
+    regs = t[:, :, 0::2, :].astype(np.uint32) | (
+        t[:, :, 1::2, :].astype(np.uint32) << 16
+    )  # (G, 32, 8, 128)
+    reg_list = [regs[:, k] for k in range(32)]
+    rows = transpose32_np(reg_list)
+    return np.stack(rows, axis=1)  # (G, 32, 8, 128)
+
+
+def pretranspose_host(arr: np.ndarray, threads: int = 0, out=None) -> np.ndarray:
+    """Host bit transpose for pretransposed ingest: AVX2 C++ when the
+    native library is available (thread-pooled), NumPy otherwise.
+    Pads the stream to whole 64Ki-word groups (zero padding is
+    count-neutral); writes into ``out`` when given."""
+    arr = _pad_groups(arr)
+    out = _out_tiles(out, arr.size // (32 * 16 * 128), 32)
+    lib = native_lib.load()
+    if lib is None:
+        out[...] = pretranspose_host_np(arr)
+        return out
+    r = lib.lfs_bit_transpose(
+        arr.ctypes.data_as(ctypes.c_void_p), arr.size,
+        out.ctypes.data_as(ctypes.c_void_p), threads,
+    )
+    if r != 0:
+        raise RuntimeError("native bit transpose failed")
+    return out
+
+
+def pretranspose_host_packed(arr: np.ndarray, rows: tuple,
+                             threads: int = 0, out=None) -> np.ndarray:
+    """Packed host bit transpose: emit only the plane rows the device
+    transform consumes — (G, len(rows), 8, 128) uint32 — cutting both
+    the host store traffic and the device read by (32 - len(rows))/32
+    (25% full mode, 37.5% report mode). ``rows`` is the packed row
+    order (ops/kernels.PACKED_ROWS_*): unique, each in [0, 32). Writes
+    into ``out`` when given."""
+    rows = tuple(int(r) for r in rows)
+    if (not 1 <= len(rows) <= 32 or len(set(rows)) != len(rows)
+            or not all(0 <= r < 32 for r in rows)):
+        raise ValueError(f"bad packed row list {rows}: rows must be unique "
+                         "and in [0, 32)")
+    arr = _pad_groups(arr)
+    out = _out_tiles(out, arr.size // (32 * 16 * 128), len(rows))
+    lib = native_lib.load()
+    if lib is None:
+        out[...] = pretranspose_host_np(arr)[:, list(rows)]
+        return out
+    rows_arr = np.asarray(rows, dtype=np.int32)
+    r = lib.lfs_bit_transpose_packed(
+        arr.ctypes.data_as(ctypes.c_void_p), arr.size,
+        out.ctypes.data_as(ctypes.c_void_p),
+        rows_arr.ctypes.data_as(ctypes.c_void_p), len(rows), threads,
+    )
+    if r != 0:
+        raise RuntimeError(f"native packed bit transpose failed (rc={r})")
+    return out
 
 
 def popcount32_np(x: np.ndarray) -> np.ndarray:

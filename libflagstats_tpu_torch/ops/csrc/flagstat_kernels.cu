@@ -55,25 +55,17 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "flagstat_common.cuh"
+
 namespace {
+
+using namespace lfs;
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int kRegs = 32;                        // uint32 registers per thread
 constexpr int kTileWords = 32 * 2 * kRegs;       // 2048 words per warp tile
 constexpr int kTileVecs = kTileWords / 8;        // 16-byte vectors per tile
-
-enum Mode { kFlagstat = 0, kReport = 1, kPospopcnt = 2 };
-
-template <int MODE>
-struct Streams {
-  static constexpr int n = MODE == kFlagstat ? 29 : MODE == kReport ? 21 : 16;
-};
-
-// bitslice.REPORT_BITS = (0, 2, 6, 7, 8, 9, 10, 11, 12, 13, 14)
-__host__ __device__ constexpr int report_bit(int i) {
-  return i == 0 ? 0 : i == 1 ? 2 : i + 4;
-}
 
 // bitslice.TRANSPOSE_STAGES: after it, bit j of one 32-word plane sits in
 // row 15 - j and of the other in row 31 - j.
@@ -91,42 +83,6 @@ __device__ __forceinline__ void transpose32(uint32_t (&a)[kRegs]) {
       const uint32_t t = (a[k] ^ (a[k + j] >> j)) & m;
       a[k] ^= t;
       a[k + j] ^= t << j;
-    }
-  }
-}
-
-// Count one 32-word plane set: p[j] is the plane of input bit j.
-template <int MODE>
-__device__ __forceinline__ void count_planes(const uint32_t (&p)[16],
-                                             uint32_t (&cnt)[Streams<MODE>::n]) {
-  if constexpr (MODE == kPospopcnt) {
-#pragma unroll
-    for (int j = 0; j < 16; ++j) cnt[j] += __popc(p[j]);
-  } else {
-    // bitslice.transform_planes
-    const uint32_t secsup = p[8] | p[11];
-    const uint32_t inpair = p[0] & ~secsup;
-    const uint32_t supc = p[11] & ~p[8];
-    const uint32_t im = inpair & ~p[2];
-    const uint32_t t13 = im & p[3];
-    const uint32_t t[15] = {
-        inpair,     p[1] & inpair, p[2],        p[3] & inpair, p[4] & inpair,
-        p[5] & inpair, p[6] & inpair, p[7] & inpair, p[8],   p[9],
-        p[10],      supc,          im & p[1],   t13,           im ^ t13};
-    const uint32_t q = t[9];
-    if constexpr (MODE == kFlagstat) {
-#pragma unroll
-      for (int k = 0; k < 15; ++k) {
-        cnt[k] += __popc(t[k]);
-        if (k != 9) cnt[15 + k - (k > 9)] += __popc(t[k] & q);
-      }
-    } else {
-#pragma unroll
-      for (int i = 0; i < 11; ++i) {
-        const int k = report_bit(i);
-        cnt[i] += __popc(t[k]);
-        if (k != 9) cnt[11 + i - (k > 9)] += __popc(t[k] & q);
-      }
     }
   }
 }
@@ -180,30 +136,12 @@ __global__ void __launch_bounds__(kThreads)
     for (int j = 0; j < 16; ++j) p[j] = a[31 - j];
     count_planes<MODE>(p, cnt);
   }
-
-  __syncthreads();  // block_sum zeroed
-#pragma unroll
-  for (int s = 0; s < NS; ++s) {
-    unsigned long long v = cnt[s];
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1) v += __shfl_down_sync(0xFFFFFFFFu, v, off);
-    if (lane == 0 && v) atomicAdd(&block_sum[s], v);
-  }
-  __syncthreads();
-  for (int s = threadIdx.x; s < NS; s += kThreads)
-    if (block_sum[s]) atomicAdd(&out[s], block_sum[s]);
+  flush_counts<NS, kThreads>(cnt, block_sum, out);
 }
 
 template <int MODE>
 cudaError_t wave_blocks(int* blocks) {
-  int dev = 0, sms = 0, per_sm = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (e == cudaSuccess)
-    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, stream_sums_kernel<MODE>,
-                                                      kThreads, 0);
-  *blocks = sms * per_sm;
-  return e;
+  return lfs::wave_blocks(stream_sums_kernel<MODE>, kThreads, blocks);
 }
 
 template <int MODE>

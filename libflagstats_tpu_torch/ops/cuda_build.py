@@ -2,7 +2,8 @@
 
 nvcc compiles every source under ops/csrc/ into one shared library with
 a plain C interface, bound with ctypes: no PyTorch headers, so a cold
-build takes seconds. The library is keyed on a hash of the sources and
+build takes seconds. One nvcc per source runs at once, then one links.
+The library is keyed on a hash of the sources (headers included) and
 flags, written to a temp file and renamed into build/torch_kernels/, so
 concurrent builds never load a half-written file. Nothing is built at
 import: ``load()`` builds at first use and raises, with the compiler's
@@ -21,7 +22,7 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent.parent / "build" / "torch_kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 #: ptxas's report (registers, spills) of the last build this process ran
 BUILD_LOG = ""
@@ -54,19 +55,30 @@ def build() -> Path:
         return lib_path
     nvcc = _nvcc()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    try:
-        cmd = [nvcc, *NVCC_FLAGS, "-o", tmp,
-               *(str(p) for p in srcs if p.suffix == ".cu")]
-        r = subprocess.run(cmd, capture_output=True, text=True)
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as work:
+        cus = [p for p in srcs if p.suffix == ".cu"]
+        objs = [os.path.join(work, p.stem + ".o") for p in cus]
+        procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", str(p), "-o", o],
+                                  stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                                  text=True)
+                 for p, o in zip(cus, objs)]
+        logs = []
+        for p, proc in zip(cus, procs):
+            _, err = proc.communicate()
+            logs.append(f"{p.name}:\n{err}")
+            if proc.returncode != 0:
+                for other in procs:
+                    other.kill()
+                    other.wait()
+                raise RuntimeError(f"nvcc failed on {p.name} "
+                                   f"(rc={proc.returncode}):\n{err}")
+        tmp = os.path.join(work, lib_path.name)
+        r = subprocess.run([nvcc, "-shared", "-o", tmp, *objs],
+                           capture_output=True, text=True)
         if r.returncode != 0:
-            raise RuntimeError(f"nvcc failed (rc={r.returncode}):\n{r.stderr}")
-        BUILD_LOG = r.stderr
+            raise RuntimeError(f"nvcc link failed (rc={r.returncode}):\n{r.stderr}")
+        BUILD_LOG = "\n".join(logs)
         os.replace(tmp, lib_path)
-    finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
     return lib_path
 
 
@@ -84,5 +96,12 @@ def load() -> ctypes.CDLL:
         lib.lfs_wave_blocks.restype = ctypes.c_int
         lib.lfs_words_per_block.argtypes = []
         lib.lfs_words_per_block.restype = ctypes.c_int
+        lib.lfs_stream_sums_pre.argtypes = [ctypes.c_int, ctypes.c_int,
+                                            ctypes.c_void_p, ctypes.c_int64,
+                                            ctypes.c_void_p, ctypes.c_void_p]
+        lib.lfs_stream_sums_pre.restype = ctypes.c_int
+        lib.lfs_pre_wave_blocks.argtypes = [ctypes.c_int, ctypes.c_int,
+                                            ctypes.POINTER(ctypes.c_int)]
+        lib.lfs_pre_wave_blocks.restype = ctypes.c_int
         _lib = lib
     return _lib

@@ -12,6 +12,11 @@ libflagstats.h:2977-3070). The backend probe is
 No shape bucketing: the TPU path padded to a ladder of shapes to bound
 XLA recompiles, and a CUDA kernel does not recompile per shape. The
 kernel masks its own ragged edge, so nothing is padded on the host.
+
+``impl="native"`` (the host AVX2 kernels of the native library) and
+``impl="cuda_pre"`` (host packed bit transpose, then the plane-tile
+kernel) are chosen by name only: no crossover with the other tiers has
+been measured on the H100.
 """
 from __future__ import annotations
 
@@ -21,17 +26,23 @@ import torch
 from .. import flags as F
 from ..config import CONFIG
 from ..oracle import flagstat_numpy
-from .kernels import flagstat_cuda, pospopcnt_u16_cuda
+from . import native_host
+from .bitslice import pretranspose_host_packed
+from .kernels import flagstat_cuda, flagstat_cuda_pre, packed_rows_for, pospopcnt_u16_cuda
 from .torch_ops import as_words, flagstat_torch, pospopcnt_u16_torch
 
 #: implementation registry
 FLAGSTAT_IMPLS = {
     "numpy": "host vectorized mask-select oracle (FLAGSTAT_scalar tier)",
+    "native": "host AVX2 Harley-Seal kernel (native C++ library)",
     "torch": "packed-SWAR word transform + positional reduce in plain torch, "
              "on any device",
     "cuda": "bit-sliced register transpose + popcount CUDA kernel (sm_90a)",
     "cuda_report": "the same kernel counting the 21 report streams only "
                    "(masked-positional counters are 0)",
+    "cuda_pre": "host packed bit transpose (native C++), then the "
+                "transform + popcount CUDA kernel over 24-row plane tiles "
+                "(sm_90a)",
 }
 POSPOPCNT_IMPLS = {
     "numpy": "host per-bit count",
@@ -97,12 +108,22 @@ def get_function(n_len: int, impl: str | None = None, device=None):
         impl = auto_impl(n_len, device)
     if impl == "numpy":
         return lambda arr: flagstat_numpy(_host_words(_validate_u16(arr)))
+    if impl == "native":
+        return lambda arr: native_host.flagstat_native(_host_words(_validate_u16(arr)))
     if impl not in FLAGSTAT_IMPLS:
         raise ValueError(f"unknown impl {impl!r}")
 
     def run(arr):
         words = as_words(_validate_u16(arr))
-        words = words.to(_target_device(impl, device, words))
+        target = _target_device(impl, device, words)
+        if impl == "cuda_pre":
+            # packed tiles: 25% fewer bytes cross the bus and are read
+            # than raw words (dispatch.py:283-300 of the JAX package)
+            host = _host_words(words)
+            planes = pretranspose_host_packed(host, packed_rows_for(False))
+            tiles = torch.from_numpy(planes.view(np.int32)).to(target)
+            return _host_counts(flagstat_cuda_pre(tiles, host.size, packed=True))
+        words = words.to(target)
         if impl == "torch":
             return _host_counts(flagstat_torch(words))
         return _host_counts(flagstat_cuda(words, report=impl == "cuda_report"))
@@ -161,7 +182,8 @@ def flagstats_u16(array, out=None, impl: str | None = None, device=None) -> np.n
         impl = auto_impl(len(words), _where(words, device))
     fn = get_function(len(words), impl, device)
     acc = np.zeros(F.N_COUNTERS, dtype=np.uint64) if out is None else out
-    for chunk in ([words] if impl == "numpy" else _device_chunks(words)):
+    host_tier = impl in ("numpy", "native")
+    for chunk in ([words] if host_tier else _device_chunks(words)):
         acc += fn(chunk)
     return acc
 

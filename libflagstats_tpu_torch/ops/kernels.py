@@ -1,19 +1,24 @@
-"""The bit-sliced flagstat/pospopcnt kernel: CUDA wrapper and plain twin.
+"""The bit-sliced flagstat/pospopcnt kernels: CUDA wrappers and plain twins.
 
 Port of the part of ``libflagstats_tpu.ops.pallas_kernels`` that the
-main path runs: ``_run_kernel`` in modes ``"flagstat"``,
-``"flagstat_report"`` and ``"pospopcnt"`` over raw uint16 words.
+ported paths run: ``_run_kernel`` in modes ``"flagstat"``,
+``"flagstat_report"`` and ``"pospopcnt"`` over raw uint16 words (K1),
+and with ``pre=True`` over host-pretransposed plane tiles, all 32 rows
+or the packed 24/20 (K2, ``stream_sums_pallas_pre``).
 
-* ``stream_sums_cuda(x, mode)`` launches the hand-written sm_90a kernel
-  (ops/csrc/flagstat_kernels.cu) on a CUDA tensor, and takes the plain
-  version only for a tensor that lies on the CPU. There is no fallback:
-  a CUDA tensor the kernel does not take raises.
-* ``stream_sums_plain(x, mode)`` is the torch twin of the JAX kernel
-  body's jnp twin (``_stream_sums_jnp_body``): the same transpose32,
-  transform_planes, stream-input functions, carry-save adders and popcount
-  peel, on CPU and CUDA tensors alike.
+* ``stream_sums_cuda(x, mode)`` and ``stream_sums_pre_cuda(planes,
+  report, packed)`` launch the hand-written sm_90a kernels
+  (ops/csrc/flagstat_kernels.cu, ops/csrc/flagstat_pre_kernels.cu) on a
+  CUDA tensor, and take the plain version only for a tensor that lies on
+  the CPU. There is no fallback: a CUDA tensor a kernel does not take
+  raises.
+* ``stream_sums_plain(x, mode)`` and ``stream_sums_pre_plain(planes,
+  report, packed)`` are the torch twins of the JAX kernel body's jnp twin
+  (``_stream_sums_jnp_body``, ``pre=False``/``True``): the same
+  transpose32, transform_planes, stream-input functions, carry-save
+  adders and popcount peel, on CPU and CUDA tensors alike.
 
-Both return per-stream sums as (n_streams,) int64 in the stream order of
+All return per-stream sums as (n_streams,) int64 in the stream order of
 ``bitslice.C_STREAMS + F_STREAMS`` (or the REPORT_* order, or bits 0-15).
 """
 from __future__ import annotations
@@ -41,9 +46,18 @@ _MODE_ID = {m: i for i, m in enumerate(MODES)}   # the .cu's enum Mode
 N_STREAMS = {"flagstat": B.N_STREAMS, "flagstat_report": B.N_REPORT_STREAMS,
              "pospopcnt": F.N_BITS}
 
+#: K2's launch counters: flagstat and report mode over plane tiles
+PRE_MODES = ("pre", "pre_report")
 #: kernel launches per mode, counted where the kernel is launched and
 #: nowhere else
-LAUNCHES = {m: 0 for m in MODES}
+LAUNCHES = {m: 0 for m in MODES + PRE_MODES}
+
+#: packed plane-tile row orders: the flagstat transform never reads the
+#: planes of FLAG bits 12-15 (nor, in report mode, of bits 4 and 5), so
+#: the pretransposed layout ships only the rows K2 consumes, sorted by
+#: original row (pallas_kernels.py:131-143)
+PACKED_ROWS_FULL = tuple(sorted(B.NEEDED_ROWS))           # 24 rows
+PACKED_ROWS_REPORT = tuple(sorted(B.REPORT_NEEDED_ROWS))  # 20 rows
 
 
 def _check_mode(mode: str) -> None:
@@ -115,17 +129,24 @@ def _mode_setup(mode: str):
 
 def _plain_chunk(xb: torch.Tensor, stages, make_streams, state) -> None:
     """Count one chunk of bodies, (bodies, 8, 32, 16, 128) int16, into
-    ``state`` = (v1, v2, v4, v8, acc) lists of (bodies, 8, 128) int32.
-
-    The Pallas kernel runs one Harley-Seal body per grid step and carries
-    v1..v8 across steps; here the bodies of a chunk are extra lanes, each
-    carrying its own tree from chunk to chunk (counting is order-free)."""
-    v1, v2, v4, v8, acc = state
+    ``state`` (see _count_rows)."""
     w = xb.to(torch.int32) & 0xFFFF
     # the kernel's sublane bitcast: adjacent uint16 sublanes pair into one
     # uint32 register, each word intact in one 16-bit field
     regs = w[..., 0::2, :] | (w[..., 1::2, :] << 16)   # (bodies, 8, 32, 8, 128)
     rows = _transpose32([regs[:, :, k] for k in range(REGS)], stages)
+    _count_rows(rows, make_streams, state)
+
+
+def _count_rows(rows, make_streams, state) -> None:
+    """Count the plane rows of one chunk of bodies, each (bodies, 8, 8,
+    128) int32 (None for a row no stream reads), into ``state`` =
+    (v1, v2, v4, v8, acc) lists of (bodies, 8, 128) int32.
+
+    The Pallas kernel runs one Harley-Seal body per grid step and carries
+    v1..v8 across steps; here the bodies of a chunk are extra lanes, each
+    carrying its own tree from chunk to chunk (counting is order-free)."""
+    v1, v2, v4, v8, acc = state
     pairs = make_streams(rows)
     for s, (h1, h2) in enumerate(pairs):
         twosA = foursA = eightsA = None
@@ -161,18 +182,28 @@ def stream_sums_plain(x, mode: str = "flagstat") -> torch.Tensor:
     stages, make_streams = _mode_setup(mode)
     bodies = min(PLAIN_CHUNK_BODIES, -(-n // BODY_WORDS))
     chunk = bodies * BODY_WORDS
-    zero = torch.zeros((bodies, SUB, LANE), dtype=torch.int32, device=dev)
-    v1, v2, v4, v8 = ([zero] * n_streams for _ in range(4))
-    acc = [zero.to(torch.int64)] * n_streams
-    state = (v1, v2, v4, v8, acc)
+    state = _new_state(bodies, n_streams, dev)
     for start in range(0, n, chunk):
         part = words[start:start + chunk]
         if part.numel() < chunk:
             part = torch.nn.functional.pad(part, (0, chunk - part.numel()))
         _plain_chunk(part.view(bodies, 8, REGS, SUB16, LANE), stages,
                      make_streams, state)
+    return _flush_state(state)
+
+
+def _new_state(bodies: int, n_streams: int, dev) -> tuple:
+    zero = torch.zeros((bodies, SUB, LANE), dtype=torch.int32, device=dev)
+    v1, v2, v4, v8 = ([zero] * n_streams for _ in range(4))
+    return v1, v2, v4, v8, [zero.to(torch.int64)] * n_streams
+
+
+def _flush_state(state) -> torch.Tensor:
+    """The weighted v1/v2/v4/v8 residuals plus the peeled sums, per
+    stream -> (n_streams,) int64."""
+    v1, v2, v4, v8, acc = state
     out = []
-    for s in range(n_streams):
+    for s in range(len(acc)):
         res = (acc[s] + _popcount32(v1[s]) + (_popcount32(v2[s]) << 1)
                + (_popcount32(v4[s]) << 2) + (_popcount32(v8[s]) << 3))
         out.append(res.sum())
@@ -232,6 +263,111 @@ def wave_words(mode: str = "flagstat", device=None) -> int:
     return blocks.value * lib.lfs_words_per_block()
 
 
+# ---- K2: the kernel over host-pretransposed plane tiles ----
+
+def packed_rows_for(report: bool = False) -> tuple[int, ...]:
+    return PACKED_ROWS_REPORT if report else PACKED_ROWS_FULL
+
+
+def _check_planes(planes, report: bool, packed: bool) -> tuple[torch.Tensor, tuple]:
+    """(int32 view of the tiles, their original row order), or raise."""
+    if not isinstance(planes, torch.Tensor):
+        raise TypeError(f"expected a torch.Tensor, got {type(planes).__name__}")
+    rows = packed_rows_for(report) if packed else tuple(range(REGS))
+    if planes.ndim != 4 or tuple(planes.shape[1:]) != (len(rows), SUB, LANE):
+        raise ValueError(f"expected (G, {len(rows)}, 8, 128) plane tiles, "
+                         f"got {tuple(planes.shape)}")
+    if planes.dtype not in (torch.uint32, torch.int32):
+        raise ValueError(f"expected uint32 plane tiles or an int32 view, got {planes.dtype}")
+    return planes.view(torch.int32), rows
+
+
+def stream_sums_pre_plain(planes: torch.Tensor, report: bool = False,
+                          packed: bool = False) -> torch.Tensor:
+    """Per-stream sums of plane tiles -> (n_streams,) int64: the torch
+    twin of ``_stream_sums_jnp_body(pre=True)`` with the packed-row map
+    of ``pallas_kernels._make_kernel`` (``:244-251``).
+
+    ``planes``: (G, R, 8, 128) uint32 (or int32), R = 32, or the packed
+    24 (full) / 20 (report) rows of ``packed_rows_for(report)``. Pads
+    each chunk with zero tiles to whole 8-group bodies (zero planes
+    count nothing) and runs on the device the tensor lies on."""
+    planes, rows = _check_planes(planes, report, packed)
+    mode = "flagstat_report" if report else "flagstat"
+    n_streams = N_STREAMS[mode]
+    groups = planes.shape[0]
+    if groups == 0:
+        return torch.zeros(n_streams, dtype=torch.int64, device=planes.device)
+    _, make_streams = _mode_setup(mode)
+    slot = {orig: i for i, orig in enumerate(rows)}
+    bodies = min(PLAIN_CHUNK_BODIES, -(-groups // 8))
+    chunk = bodies * 8
+    state = _new_state(bodies, n_streams, planes.device)
+    for start in range(0, groups, chunk):
+        part = planes[start:start + chunk]
+        if part.shape[0] < chunk:
+            part = torch.cat([part, part.new_zeros((chunk - part.shape[0],)
+                                                   + tuple(part.shape[1:]))])
+        xb = part.reshape(bodies, 8, len(rows), SUB, LANE)
+        # unshipped rows stay None: the stream builders never read them
+        _count_rows([xb[:, :, slot[k]] if k in slot else None for k in range(REGS)],
+                    make_streams, state)
+    return _flush_state(state)
+
+
+def stream_sums_pre_cuda(planes: torch.Tensor, report: bool = False,
+                         packed: bool = False) -> torch.Tensor:
+    """Per-stream sums of plane tiles through K2 -> (n_streams,) int64.
+
+    ``planes`` as for stream_sums_pre_plain; on a CUDA tensor it must be
+    contiguous and 16-byte aligned, and this launches the kernel
+    (ops/csrc/flagstat_pre_kernels.cu) or raises. A CPU tensor takes the
+    plain version. No group count is padded: a CUDA block takes one
+    group per turn of its loop, and zero tiles count nothing."""
+    planes32, rows = _check_planes(planes, report, packed)
+    if planes.device.type == "cpu":
+        return stream_sums_pre_plain(planes, report, packed)
+    if planes.device.type != "cuda":
+        raise ValueError(f"the kernel runs on CUDA tensors, got {planes.device}")
+    if not planes.is_contiguous():
+        raise ValueError("the kernel reads contiguous plane tiles")
+    if planes.data_ptr() % 16:
+        raise ValueError("the kernel needs 16-byte aligned plane tiles")
+    mode = "flagstat_report" if report else "flagstat"
+    out = torch.zeros(N_STREAMS[mode], dtype=torch.int64, device=planes.device)
+    groups = planes.shape[0]
+    if groups == 0:
+        return out
+    from . import cuda_build
+
+    lib = cuda_build.load()
+    with torch.cuda.device(planes.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.lfs_stream_sums_pre(_MODE_ID[mode], len(rows), planes32.data_ptr(),
+                                      groups, out.data_ptr(), stream)
+    if err:
+        raise RuntimeError(f"stream_sums_pre kernel ({mode}, {len(rows)} rows) "
+                           f"failed: cudaError {err}")
+    LAUNCHES["pre_report" if report else "pre"] += 1
+    return out
+
+
+def pre_wave_groups(report: bool = False, packed: bool = False, device=None) -> int:
+    """Groups one full wave of K2's blocks covers on ``device`` (a block
+    takes one group per turn of its grid-stride loop)."""
+    mode = "flagstat_report" if report else "flagstat"
+    rows = len(packed_rows_for(report)) if packed else REGS
+    from . import cuda_build
+
+    lib = cuda_build.load()
+    blocks = ctypes.c_int(0)
+    with torch.cuda.device(device):
+        err = lib.lfs_pre_wave_blocks(_MODE_ID[mode], rows, ctypes.byref(blocks))
+    if err:
+        raise RuntimeError(f"occupancy query failed: cudaError {err}")
+    return blocks.value
+
+
 def _sums_to_streams(sums: torch.Tensor, report: bool) -> tuple[torch.Tensor, torch.Tensor]:
     """Per-stream totals -> (C[k], F[k]) scattered into 16-bin vectors
     (pallas_kernels._sums_to_streams)."""
@@ -252,6 +388,16 @@ def flagstat_cuda(x: torch.Tensor, n=None, report: bool = False) -> torch.Tensor
     sums = stream_sums_cuda(x, "flagstat_report" if report else "flagstat")
     total, fail = _sums_to_streams(sums, report)
     return assemble_counters(total, fail, x.numel() if n is None else n)
+
+
+def flagstat_cuda_pre(planes: torch.Tensor, n: int, report: bool = False,
+                      packed: bool = False) -> torch.Tensor:
+    """Flagstat counters over host-pretransposed plane tiles (see
+    stream_sums_pre_cuda) -> (32,) int64. ``n`` is the true (pre-padding)
+    word count for the derived pass-total (reference: libflagstats.h:429)."""
+    sums = stream_sums_pre_cuda(planes, report, packed)
+    total, fail = _sums_to_streams(sums, report)
+    return assemble_counters(total, fail, n)
 
 
 def flagstat_cuda_report(x: torch.Tensor, n=None) -> torch.Tensor:

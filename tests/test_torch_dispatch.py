@@ -112,5 +112,6 @@ def test_auto_impl_is_host_without_a_device():
     assert D.auto_impl(1 << 30) == "numpy"
     assert D.pospopcnt_auto_impl(1 << 30) == "numpy"
     assert D.auto_impl(10, device="cuda") == "cuda"
-    assert set(D.FLAGSTAT_IMPLS) == {"numpy", "torch", "cuda", "cuda_report"}
+    assert set(D.FLAGSTAT_IMPLS) == {"numpy", "native", "torch", "cuda",
+                                     "cuda_report", "cuda_pre"}
     assert set(D.POSPOPCNT_IMPLS) == {"numpy", "torch", "cuda"}

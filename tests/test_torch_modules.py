@@ -99,6 +99,8 @@ def test_import_pulls_in_no_jax():
         "import libflagstats_tpu_torch, libflagstats_tpu_torch.datasets\n"
         "import libflagstats_tpu_torch.ops.kernels, libflagstats_tpu_torch.ops.cuda_build\n"
         "import libflagstats_tpu_torch.ops.dispatch, libflagstats_tpu_torch.ops.torch_ops\n"
+        "import libflagstats_tpu_torch.ops.native_host, libflagstats_tpu_torch.io.stream\n"
+        "import libflagstats_tpu_torch.io.codec, libflagstats_tpu_torch.bench.profiling\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m.split('.')[0] in ('jax', 'jaxlib', 'libflagstats_tpu'))\n"
         "assert not bad, bad\n"
