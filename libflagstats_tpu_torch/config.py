@@ -1,6 +1,6 @@
-"""Live knobs of the port, read at their point of use (ops/dispatch.py,
-io/codec.py, io/stream.py), so editing CONFIG at run time takes effect
-on the next call."""
+"""Live knobs of the port, read at their point of use (io/codec.py,
+io/stream.py), so editing CONFIG at run time takes effect on the next
+call."""
 from __future__ import annotations
 
 from dataclasses import dataclass
@@ -8,11 +8,6 @@ from dataclasses import dataclass
 
 @dataclass
 class Config:
-    #: words from which auto dispatch counts on the CUDA device when one
-    #: is present (below it, the host numpy oracle). Not yet measured on
-    #: the H100: a placeholder until a crossover sweep on the card
-    #: replaces it.
-    cuda_min: int = 1 << 20
     #: framed codec block (reference: flagstats.cpp:136)
     block_bytes: int = 1_024_000
     #: decode pool threads of the stream; 0 = the stream's default (8)

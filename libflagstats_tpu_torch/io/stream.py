@@ -206,8 +206,10 @@ def flagstat_stream(path, codec: str | int = "lz4", impl: str | None = None,
     overlapped.
 
     ``impl``: ``"native"``, ``"torch"``, ``"cuda"`` or ``"cuda_pre"``;
-    None picks ``"native"`` when the native library builds, else
-    ``"cuda"`` when a CUDA device is present, else ``"torch"``.
+    None picks ``"torch"`` for ``device="cpu"``, else ``"cuda"`` (the
+    JAX package's device default is ``"pallas"``), and raises when no
+    CUDA device is present. The fused host stream, ``"native"``, is
+    chosen by name: on the H100's host it is the faster one (PERF.md).
     ``device``: where a device impl counts (default: the CUDA device;
     for ``"torch"`` the CPU when there is none). ``"cuda"`` and
     ``"cuda_pre"`` on ``device="cpu"`` run the kernels' plain versions;
@@ -227,12 +229,7 @@ def flagstat_stream(path, codec: str | int = "lz4", impl: str | None = None,
     so a ``"sums"`` checkpoint holds int32-range values the JAX package
     can resume (and vice versa)."""
     if impl is None:
-        if native_host.available():
-            impl = "native"
-        elif torch.cuda.is_available():
-            impl = "cuda"
-        else:
-            impl = "torch"
+        impl = D.auto_impl(0, device)
     if impl == "native":
         return _flagstat_stream_native(path, codec, threads, checkpoint, timer)
     if impl not in DEVICE_IMPLS:

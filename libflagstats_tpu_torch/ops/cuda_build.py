@@ -103,5 +103,14 @@ def load() -> ctypes.CDLL:
         lib.lfs_pre_wave_blocks.argtypes = [ctypes.c_int, ctypes.c_int,
                                             ctypes.POINTER(ctypes.c_int)]
         lib.lfs_pre_wave_blocks.restype = ctypes.c_int
+        lib.lfs_stream_sums_words.argtypes = [ctypes.c_void_p, ctypes.c_int64,
+                                              ctypes.c_void_p, ctypes.c_int,
+                                              ctypes.c_void_p]
+        lib.lfs_stream_sums_words.restype = ctypes.c_int
+        lib.lfs_words_wave_blocks.argtypes = [ctypes.POINTER(ctypes.c_int)]
+        lib.lfs_words_wave_blocks.restype = ctypes.c_int
+        for name in ("lfs_words_block_words", "lfs_words_flush_bodies"):
+            getattr(lib, name).argtypes = []
+            getattr(lib, name).restype = ctypes.c_int
         _lib = lib
     return _lib

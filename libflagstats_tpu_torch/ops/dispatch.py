@@ -5,18 +5,23 @@ counterpart of FLAGSTATS_get_function / FLAGSTATS_u16, reference:
 libflagstats.h:2977-3070). The backend probe is
 ``torch.cuda.is_available()``, and the tiers are
 
-  words on a CUDA device, or a CUDA ``device`` -> the bit-sliced CUDA kernel
-  n >= CONFIG.cuda_min and a CUDA device       -> the bit-sliced CUDA kernel
-  otherwise                                    -> host numpy oracle
+  ``device="cpu"``                        -> the plain torch tier on the CPU
+  a CUDA device present, or asked for     -> the bit-sliced CUDA kernel, at
+                                             every size (n = 0 launches nothing)
+  no CUDA device, and no request for the CPU -> RuntimeError
+
+The host tiers (``"numpy"``, ``"native"``) are chosen by name. No
+crossover between them and the card has been measured on the H100, so
+the entry points do not switch to the host by size.
 
 No shape bucketing: the TPU path padded to a ladder of shapes to bound
 XLA recompiles, and a CUDA kernel does not recompile per shape. The
 kernel masks its own ragged edge, so nothing is padded on the host.
 
-``impl="native"`` (the host AVX2 kernels of the native library) and
+``impl="native"`` (the host AVX2 kernels of the native library),
 ``impl="cuda_pre"`` (host packed bit transpose, then the plane-tile
-kernel) are chosen by name only: no crossover with the other tiers has
-been measured on the H100.
+kernel) and ``impl="cuda_words"`` (the word-space kernel K6) are chosen
+by name only.
 """
 from __future__ import annotations
 
@@ -24,12 +29,12 @@ import numpy as np
 import torch
 
 from .. import flags as F
-from ..config import CONFIG
 from ..oracle import flagstat_numpy
 from . import native_host
 from .bitslice import pretranspose_host_packed
 from .kernels import flagstat_cuda, flagstat_cuda_pre, packed_rows_for, pospopcnt_u16_cuda
 from .torch_ops import as_words, flagstat_torch, pospopcnt_u16_torch
+from .words_kernels import flagstat_cuda_words
 
 #: implementation registry
 FLAGSTAT_IMPLS = {
@@ -43,6 +48,8 @@ FLAGSTAT_IMPLS = {
     "cuda_pre": "host packed bit transpose (native C++), then the "
                 "transform + popcount CUDA kernel over 24-row plane tiles "
                 "(sm_90a)",
+    "cuda_words": "word-space SWAR transform + two Harley-Seal trees CUDA "
+                  "kernel, no bit transpose (sm_90a)",
 }
 POSPOPCNT_IMPLS = {
     "numpy": "host per-bit count",
@@ -60,18 +67,23 @@ DEVICE_WORD_CAP = 0x7FFFFFFF
 
 
 def auto_impl(n_len: int, device=None) -> str:
-    """The flagstat tier for one call of ``n_len`` words; ``device`` is
-    where the words lie or are asked to be counted, if anywhere."""
-    if device is not None and torch.device(device).type == "cuda":
+    """The flagstat tier for one call of ``n_len`` words: ``"torch"``
+    when ``device`` is the CPU, else ``"cuda"`` at every size. With no
+    CUDA device and no ``device`` asked for, raises: the entry points
+    count on the card unless the caller asks for the CPU."""
+    if device is not None:
+        return "torch" if torch.device(device).type == "cpu" else "cuda"
+    if torch.cuda.is_available():
         return "cuda"
-    if n_len >= CONFIG.cuda_min and torch.cuda.is_available():
-        return "cuda"
-    return "numpy"
+    raise RuntimeError(
+        "no CUDA device is available; ask for the CPU with device='cpu' "
+        "(the plain torch tier) or for a host impl by name (impl='native', "
+        "or impl='numpy' for a column in memory)")
 
 
 def pospopcnt_auto_impl(n_len: int, device=None) -> str:
     """The pospopcnt tier for one call of ``n_len`` words (the flagstat
-    rule until a crossover on the card says otherwise)."""
+    rule)."""
     return auto_impl(n_len, device)
 
 
@@ -126,6 +138,8 @@ def get_function(n_len: int, impl: str | None = None, device=None):
         words = words.to(target)
         if impl == "torch":
             return _host_counts(flagstat_torch(words))
+        if impl == "cuda_words":
+            return _host_counts(flagstat_cuda_words(words))
         return _host_counts(flagstat_cuda(words, report=impl == "cuda_report"))
 
     return run
@@ -164,9 +178,13 @@ def _validate_u16(array):
 
 
 def _where(words, device):
+    """The device asked for: ``device``, or that of words already on a
+    CUDA device. Words on the CPU are no request for the CPU."""
     if device is not None:
         return device
-    return words.device if isinstance(words, torch.Tensor) else None
+    if isinstance(words, torch.Tensor) and words.device.type == "cuda":
+        return words.device
+    return None
 
 
 def flagstats_u16(array, out=None, impl: str | None = None, device=None) -> np.ndarray:

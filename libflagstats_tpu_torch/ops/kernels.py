@@ -49,8 +49,8 @@ N_STREAMS = {"flagstat": B.N_STREAMS, "flagstat_report": B.N_REPORT_STREAMS,
 #: K2's launch counters: flagstat and report mode over plane tiles
 PRE_MODES = ("pre", "pre_report")
 #: kernel launches per mode, counted where the kernel is launched and
-#: nowhere else
-LAUNCHES = {m: 0 for m in MODES + PRE_MODES}
+#: nowhere else ("words": K6, ops/words_kernels.py)
+LAUNCHES = {m: 0 for m in MODES + PRE_MODES + ("words",)}
 
 #: packed plane-tile row orders: the flagstat transform never reads the
 #: planes of FLAG bits 12-15 (nor, in report mode, of bits 4 and 5), so
@@ -212,18 +212,14 @@ def _flush_state(state) -> torch.Tensor:
 
 # ---- the kernel wrapper ----
 
-def stream_sums_cuda(x: torch.Tensor, mode: str = "flagstat") -> torch.Tensor:
-    """Per-stream sums through the CUDA kernel -> (n_streams,) int64.
-
-    ``x``: a contiguous uint16 (or int16 view) tensor. On a CUDA tensor
-    this launches the kernel or raises; a CPU tensor takes the plain
-    version. The kernel masks its own head and tail, so any 2-byte
-    aligned start (an odd-offset slice, say) is taken as it is."""
-    _check_mode(mode)
+def check_cuda_words(x) -> bool:
+    """True when ``x`` is a tensor on the CPU (the wrappers then take
+    their plain versions); False for a word stream a raw-word kernel
+    takes; raises for anything else."""
     if not isinstance(x, torch.Tensor):
         raise TypeError(f"expected a torch.Tensor, got {type(x).__name__}")
     if x.device.type == "cpu":
-        return stream_sums_plain(x, mode)
+        return True
     if x.device.type != "cuda":
         raise ValueError(f"the kernel runs on CUDA tensors, got {x.device}")
     if x.dtype not in (torch.uint16, torch.int16):
@@ -232,6 +228,19 @@ def stream_sums_cuda(x: torch.Tensor, mode: str = "flagstat") -> torch.Tensor:
         raise ValueError("the kernel reads a contiguous word stream")
     if x.data_ptr() % 2:
         raise ValueError("the kernel needs 2-byte aligned words")
+    return False
+
+
+def stream_sums_cuda(x: torch.Tensor, mode: str = "flagstat") -> torch.Tensor:
+    """Per-stream sums through the CUDA kernel -> (n_streams,) int64.
+
+    ``x``: a contiguous uint16 (or int16 view) tensor. On a CUDA tensor
+    this launches the kernel or raises; a CPU tensor takes the plain
+    version. The kernel masks its own head and tail, so any 2-byte
+    aligned start (an odd-offset slice, say) is taken as it is."""
+    _check_mode(mode)
+    if check_cuda_words(x):
+        return stream_sums_plain(x, mode)
     out = torch.zeros(N_STREAMS[mode], dtype=torch.int64, device=x.device)
     if x.numel() == 0:
         return out

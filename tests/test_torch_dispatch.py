@@ -13,10 +13,11 @@ from libflagstats_tpu.oracle import generate_flags
 
 import libflagstats_tpu_torch as L
 from libflagstats_tpu_torch import flags as F
+from libflagstats_tpu_torch.config import CONFIG
 from libflagstats_tpu_torch.ops import dispatch as D
 
 PORT_IMPLS = [("numpy", None), ("torch", None), ("torch", "cpu"),
-              ("cuda", "cpu"), ("cuda_report", "cpu")]
+              ("cuda", "cpu"), ("cuda_report", "cpu"), ("cuda_words", "cpu")]
 
 
 def _check(got, want, impl):
@@ -51,7 +52,7 @@ def test_pospopcnt_u16_equals_jax(impl, device, full_range):
 
 def test_flagstats_dict_equals_jax():
     x = generate_flags(50_000, seed=63, full_range=True)
-    assert L.flagstats(x) == J.flagstats(x, impl="numpy")
+    assert L.flagstats(x, device="cpu") == J.flagstats(x, impl="numpy")
     assert L.flagstats(x, impl="torch") == J.flagstats(x, impl="numpy")
     with pytest.raises(ValueError):
         L.flagstats(x.astype(np.int32))
@@ -95,9 +96,9 @@ def test_tensor_input_and_validation():
     x = generate_flags(5000, seed=67, full_range=True)
     want = J.flagstats_u16(x, impl="numpy")
     t = torch.from_numpy(x)
-    np.testing.assert_array_equal(L.flagstats_u16(t), want)
+    np.testing.assert_array_equal(L.flagstats_u16(t, device="cpu"), want)
     np.testing.assert_array_equal(L.flagstats_u16(t.view(torch.int16), impl="torch"), want)
-    np.testing.assert_array_equal(L.flagstats_u16(x.astype(np.int64)), want)
+    np.testing.assert_array_equal(L.flagstats_u16(x.astype(np.int64), device="cpu"), want)
     with pytest.raises(ValueError):
         L.flagstats_u16(np.array([-1, 3]))
     with pytest.raises(ValueError):
@@ -107,11 +108,23 @@ def test_tensor_input_and_validation():
 
 
 def test_auto_impl_is_host_without_a_device():
+    """With no card, the default tier raises rather than counting on the
+    host; device="cpu" asks for the CPU and gets the plain torch tier."""
     if torch.cuda.is_available():
         pytest.skip("checks the no-CUDA-device tiers")
-    assert D.auto_impl(1 << 30) == "numpy"
-    assert D.pospopcnt_auto_impl(1 << 30) == "numpy"
-    assert D.auto_impl(10, device="cuda") == "cuda"
+    x = generate_flags(3000, seed=68, full_range=True)
+    for n in (0, 1, 1 << 30):
+        for rule in (D.auto_impl, D.pospopcnt_auto_impl):
+            with pytest.raises(RuntimeError, match="device='cpu'"):
+                rule(n)
+            assert rule(n, device="cpu") == "torch"
+            assert rule(n, device="cuda") == "cuda"
+    for call in (L.flagstats_u16, L.pospopcnt_u16, L.flagstats):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call(x)
+    np.testing.assert_array_equal(L.flagstats_u16(x, device="cpu"),
+                                  J.flagstats_u16(x, impl="numpy"))
+    assert not hasattr(CONFIG, "cuda_min")
     assert set(D.FLAGSTAT_IMPLS) == {"numpy", "native", "torch", "cuda",
-                                     "cuda_report", "cuda_pre"}
+                                     "cuda_report", "cuda_pre", "cuda_words"}
     assert set(D.POSPOPCNT_IMPLS) == {"numpy", "torch", "cuda"}

@@ -23,6 +23,7 @@ import libflagstats_tpu_torch.report as treport
 from libflagstats_tpu_torch.ops import bitslice as tB
 from libflagstats_tpu_torch.ops import cuda_build
 from libflagstats_tpu_torch.ops import kernels as K
+from libflagstats_tpu_torch.parallel import flagstat_sharded
 
 REPO = Path(__file__).resolve().parent.parent
 
@@ -101,6 +102,8 @@ def test_import_pulls_in_no_jax():
         "import libflagstats_tpu_torch.ops.dispatch, libflagstats_tpu_torch.ops.torch_ops\n"
         "import libflagstats_tpu_torch.ops.native_host, libflagstats_tpu_torch.io.stream\n"
         "import libflagstats_tpu_torch.io.codec, libflagstats_tpu_torch.bench.profiling\n"
+        "import libflagstats_tpu_torch.ops.words_kernels, libflagstats_tpu_torch.parallel\n"
+        "import libflagstats_tpu_torch.parallel.sharded, libflagstats_tpu_torch.parallel.multihost\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m.split('.')[0] in ('jax', 'jaxlib', 'libflagstats_tpu'))\n"
         "assert not bad, bad\n"
@@ -124,8 +127,11 @@ def _no_cuda():
     lambda x: L.pospopcnt_u16(x, device="cuda"),
     lambda x: L.get_function(x.size, impl="cuda")(x),
     lambda x: L.flagstats(x, impl="cuda"),
+    lambda x: L.flagstats_u16(x, impl="cuda_words"),
+    lambda x: flagstat_sharded(x, devices=["cuda"], impl="cuda_words"),
+    lambda x: flagstat_sharded(x, devices=["cuda", "cuda"]),
 ], ids=["flagstat", "report", "device", "pospopcnt", "pospopcnt-device",
-        "get_function", "flagstats"])
+        "get_function", "flagstats", "words", "sharded-words", "sharded-auto"])
 def test_cuda_tiers_raise_without_a_device(call):
     _no_cuda()
     x = joracle.generate_flags(3000, seed=1)

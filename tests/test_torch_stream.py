@@ -5,6 +5,7 @@ versions through the whole pipeline (staging, transpose stage, ring,
 epoch roll). Exact."""
 import numpy as np
 import pytest
+import torch
 
 import libflagstats_tpu.io.stream as jS
 from libflagstats_tpu import flags as jF
@@ -98,9 +99,19 @@ def test_bad_arguments_raise():
 
 
 def test_auto_impl_is_native_when_the_library_builds(stream_file):
+    """The default stream counts on the card: with none it raises rather
+    than falling back to the host. The fused native stream is there by
+    name and equals the JAX package's."""
     path, x = stream_file
+    if torch.cuda.is_available():
+        pytest.skip("checks the no-CUDA-device default")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        L.flagstat_stream(path, "lz4")
     timer = SectionTimer()
-    got = L.flagstat_stream(path, "lz4", timer=timer)
+    got = L.flagstat_stream(path, "lz4", impl="native", timer=timer)
     assert "decode_count" in timer.totals       # the fused native pipeline ran
+    np.testing.assert_array_equal(got, jS.flagstat_stream(path, "lz4", impl="native"))
     np.testing.assert_array_equal(got, flagstat_numpy(x))
+    np.testing.assert_array_equal(L.flagstat_stream(path, "lz4", chunk_words=GW, device="cpu"),
+                                  got)           # device="cpu" picks the torch tier
     assert S.DEVICE_IMPLS == ("torch", "cuda", "cuda_pre")
