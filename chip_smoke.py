@@ -23,11 +23,17 @@ of libflagstats_tpu.
 Each ported path is driven with the launch counts set to 0 just before
 it and read just after: phase 4 (a-d) the in-memory entry points, phase
 4 (e, f) the streaming device path, phase 4g the word-space impl, phase
-4h the data-parallel path (its workers report their own counts).
+4h the data-parallel path (its workers report their own counts), phase
+4i the measurement path (the `kernels`, `instrumented` and `inmemory`
+subcommands, the stage decomposition and the scaling sweep). Phase 3d
+holds the read roofline (K4) and the three stage probes (K7) against
+their plain versions and host references; phase 5d times them.
 """
 from __future__ import annotations
 
 import concurrent.futures as cf
+import contextlib
+import io
 import json
 import os
 import statistics
@@ -42,6 +48,7 @@ import torch
 
 import libflagstats_tpu_torch as L
 import libflagstats_tpu_torch.parallel.multihost as MH
+from libflagstats_tpu_torch import cli
 from libflagstats_tpu_torch import flags as F
 from libflagstats_tpu_torch.bench.profiling import SectionTimer
 from libflagstats_tpu_torch.config import CONFIG
@@ -53,21 +60,36 @@ from libflagstats_tpu_torch.ops import bitslice as B
 from libflagstats_tpu_torch.ops import cuda_build
 from libflagstats_tpu_torch.ops import dispatch as D
 from libflagstats_tpu_torch.ops import kernels as K
+from libflagstats_tpu_torch.ops import probe_kernels as P
 from libflagstats_tpu_torch.ops import words_kernels as W
 from libflagstats_tpu_torch.ops.torch_ops import assemble_counters
 from libflagstats_tpu_torch.oracle import flagstat_numpy, generate_flags
 from libflagstats_tpu_torch.parallel import flagstat_sharded
+from libflagstats_tpu_torch.tools import stage_decomposition
 
 WORDS_64MI = 64 << 20
 GW = K.GROUP_WORDS
 SOURCE = "libflagstats_tpu_torch/ops/csrc/flagstat_kernels.cu"
 PRE_SOURCE = "libflagstats_tpu_torch/ops/csrc/flagstat_pre_kernels.cu"
 WORDS_SOURCE = "libflagstats_tpu_torch/ops/csrc/flagstat_words_kernels.cu"
+PROBE_SOURCE = "libflagstats_tpu_torch/ops/csrc/flagstat_probe_kernels.cu"
+#: the probe kernels, their launch counters and the TPU kernels they replace
+PROBE_KERNELS = (("read_xor_kernel", "read_xor", "libflagstats_tpu/ops/pallas_kernels.py:605"),
+                 ("stream_sums_raw_kernel", "raw", "libflagstats_tpu/ops/pallas_kernels.py:403"),
+                 ("transpose_xor_kernel", "transpose_xor",
+                  "libflagstats_tpu/ops/pallas_kernels.py:723"),
+                 ("transform_xor_kernel", "transform_xor",
+                  "libflagstats_tpu/ops/pallas_kernels.py:790"))
 REPLACES = "libflagstats_tpu/ops/pallas_kernels.py:403"
 WORDS_REPLACES = "libflagstats_tpu/ops/pallas_kernels.py:928"
 #: the H100 SXM's nominal device-memory rate (NVIDIA's data sheet): the
 #: kernels' bound is the bytes they must move over it
 HBM_BYTES_PER_S = 3.35e12
+#: its 32-bit integer rates per class of operation (ops/probe_kernels
+#: PROBE_OPS): the CUDA C++ Programming Guide's throughput table for
+#: compute capability 9.0 (64 logic, add or shift and 16 __popc results
+#: per clock per SM) times 132 SMs at the 1.98 GHz boost clock
+INT_OPS_PER_S = {"alu": 64 * 132 * 1.98e9, "popc": 16 * 132 * 1.98e9}
 REPO = os.path.dirname(os.path.abspath(__file__))
 #: K2's layouts: (name, report, packed)
 PRE_LAYOUTS = (("full 32 rows", False, False), ("report 32 rows", True, False),
@@ -259,6 +281,48 @@ def check_words_kernel(max_err: dict) -> None:
     print(f"K6: {cases} cases (sizes {sizes} x {len(kinds)} kinds x aligned and "
           f"odd-offset, and the forced grids), kernel = plain = oracle exactly "
           f"(max_abs_err {max_err['words']})")
+
+
+def check_probe_kernels(max_err: dict) -> None:
+    """Phase 3d: K4 and the three K7 probes = plain = host reference,
+    exactly: 0 words / groups, one group, ragged tails, two 8-group
+    steps and 64Mi words, at repeat 1, 2, 3 and 8."""
+    sizes = [0, GW, 5 * GW - 777, 8 * GW - 4_321, 16 * GW, WORDS_64MI]
+    cases = dict.fromkeys(K.PROBES, 0)
+
+    def same(key, got, plain, want, where):
+        err = int((got - plain).abs().max()) if got.numel() else 0
+        max_err[key] = max(max_err[key], err)
+        assert err == 0, (key, where, got.tolist(), plain.tolist())
+        if key == "raw":
+            assert (got.cpu().numpy() == want).all(), (key, where, got.tolist(), want)
+        else:
+            assert P.digest(got) == want, (key, where, P.digest(got), want)
+        cases[key] += 1
+
+    for n in sizes:
+        x = generate_flags(n, seed=n + 3, full_range=True)
+        buf = torch.from_numpy(np.concatenate([np.zeros(1, np.uint16), x])).cuda()
+        planes_host = B.pretranspose_host(x)
+        planes = torch.from_numpy(planes_host).cuda()
+        raw1 = P.stream_sums_raw_np(pospopcnt_np(x))
+        want = P.read_xor_np(x)
+        for label, xd in (("aligned", buf[1:].clone()), ("odd-offset slice", buf[1:])):
+            same("read_xor", P.read_xor_cuda(xd), P.read_xor_plain(xd), want, (n, label))
+        for repeat in (1, 2, 3, 8):
+            where = (n, planes.shape[0], repeat)
+            same("transpose_xor", P.transpose_xor_cuda(buf[1:], repeat),
+                 P.transpose_xor_plain(buf[1:], repeat), P.transpose_xor_np(x, repeat), where)
+            same("transform_xor", P.transform_xor_pre_cuda(planes, repeat),
+                 P.transform_xor_pre_plain(planes, repeat),
+                 P.transform_xor_pre_np(planes_host, repeat), where)
+            same("raw", P.stream_sums_raw_cuda(planes, repeat),
+                 P.stream_sums_raw_plain(planes, repeat), raw1 * repeat, where)
+        torch.cuda.synchronize()
+        print(f"phase 3d: {n} words ({planes.shape[0]} groups): K4 (aligned and odd-offset), "
+              f"K7a/b/c at repeat 1, 2, 3, 8 = plain = host reference")
+    print(f"phase 3d: {cases} cases, kernel = plain = host reference exactly (max_abs_err "
+          f"{ {k: max_err[k] for k in K.PROBES} })")
 
 
 def launched(before: dict, mode: str) -> None:
@@ -568,6 +632,53 @@ def drive_parallel_path(na_words: np.ndarray, na_path: str, tmp: str, card: str)
     return workers
 
 
+def captured(argv: list) -> tuple[int, list]:
+    """cli.main(argv) with its standard output kept and echoed."""
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = cli.main(argv)
+    lines = out.getvalue().splitlines()
+    for line in lines:
+        print(f"    {line}")
+    return rc, lines
+
+
+def drive_measurement_path() -> dict:
+    """Phase 4i: the measurement path: the kernels roster at 64Mi words,
+    instrumented and inmemory, the stage decomposition and the scaling
+    sweep. Returns the stage decomposition's result."""
+    rc, lines = captured(["kernels", "-n", str(WORDS_64MI)])
+    assert rc == 0 and not any("MISMATCH" in line for line in lines), lines
+    footer = [line for line in lines if line.startswith("[roofline:")]
+    assert len(footer) == 1, lines
+    kind = footer[0].split("]")[0][len("[roofline:"):]
+    assert set(kind.split("+")) <= {"read_xor_cuda", "read_sum"}, kind
+    timed = [line.split("\t") for line in lines[1:]
+             if not line.startswith(("[roofline", "setop_"))]
+    assert len(timed) == 9, timed
+    for cols in timed:
+        assert float(cols[5].rstrip("!")) <= 1.05, cols
+    print(f"main path (i): kernels roster, {len(timed)} timed rows, no MISMATCH, every row "
+          f"<= 1.05x the roofline ({kind}, {footer[0].split(chr(9))[4]} GB/s)")
+    rc, lines = captured(["instrumented", "-n", str(1 << 20)])
+    assert rc == 0 and all(line.endswith("\tok") for line in lines[1:]), lines
+    rc, lines = captured(["inmemory"])
+    assert rc == 0 and all(line.endswith("OK") for line in lines), lines
+    print("main path (i): instrumented -n 1048576 and inmemory: every row ok")
+    stages = stage_decomposition.run()
+    for stage in stage_decomposition.STAGES:
+        c = stages["compute"][stage]
+        # a folded rep loop leaves T(r1) in the read's shadow at any r
+        assert c["alu_ms"] is not None and c["alu_ms"] > 0 and not c["r1_still_shadowed"], \
+            (stage, c)
+    print("main path (i): stage decomposition: alu_ms " + ", ".join(
+        f"{s} {stages['compute'][s]['alu_ms']:.4f}" for s in stage_decomposition.STAGES))
+    sweep = MH.scaling_sweep(devices=["cuda:0"])
+    assert [r["devices"] for r in sweep] == [1] and sweep[0]["words_per_s"] > 0, sweep
+    print(f"main path (i): scaling_sweep on cuda:0: {sweep}")
+    return stages
+
+
 def median_ms(fn, runs: int, reps: int) -> float:
     """Median over ``runs`` of the CUDA-event time of ``reps`` calls, per call.
     A spin kernel first lets the host queue the calls ahead of the card."""
@@ -660,6 +771,76 @@ def time_pre_kernel(na_words: np.ndarray, card: str) -> dict:
     return times
 
 
+#: the repeat at which phase 5d holds each probe's time to at least
+#: GROWTH_MIN x its time at repeat 1: its stage's integer work then
+#: clearly outlasts the read it hides in at repeat 1 (a transform rep
+#: costs ~1/30 of the read at 64Mi), and a rep loop nvcc folded stays flat
+GROWTH_REPEAT = {"transpose_xor": 8, "raw": 8, "transform_xor": 128}
+GROWTH_MIN = 1.5
+
+
+def probe_bound_ms(key: str, n: int) -> tuple[float, str]:
+    """The least time of a probe over n words (whole groups) at repeat 1:
+    the larger of its bytes (input read once, output written once) over
+    the nominal device-memory rate and, for each class of its 32-bit
+    integer operations, their count over the class's rate."""
+    groups = -(-n // GW)
+    rows = P.PLANE_ROWS_READ.get(key)
+    in_bytes = groups * rows * 4096 if rows else 2 * n
+    out_bytes = 8 * 32 if key == "raw" else 4
+    t_bytes = (in_bytes + out_bytes) / HBM_BYTES_PER_S * 1e3
+    t_ops = max(ops * n / INT_OPS_PER_S[c] * 1e3 for c, ops in P.probe_ops(key).items())
+    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def time_probe_kernels(na_words: np.ndarray, card: str) -> dict:
+    """Phase 5d: K4 and the three probes at repeat 1, at 64Mi and
+    NA12878, each beside its plain version and its bound (CUDA events,
+    median of runs), K4 beside the float32-view sum's read rate."""
+    times = {}
+    x64 = generate_flags(WORDS_64MI, seed=11, full_range=True)
+    for label, words in (("64Mi", x64), ("NA12878", na_words)):
+        x = torch.from_numpy(words).cuda()
+        planes = torch.from_numpy(B.pretranspose_host(words)).cuda()
+        n = x.numel()
+        calls = {"read_xor": (lambda: P.read_xor_cuda(x), lambda: P.read_xor_plain(x)),
+                 "transpose_xor": (lambda: P.transpose_xor_cuda(x), lambda: P.transpose_xor_plain(x)),
+                 "transform_xor": (lambda: P.transform_xor_pre_cuda(planes),
+                                   lambda: P.transform_xor_pre_plain(planes)),
+                 "raw": (lambda: P.stream_sums_raw_cuda(planes), lambda: P.stream_sums_raw_plain(planes))}
+        ref_ms = median_ms(lambda: x.view(torch.float32).sum(), 7, 10)
+        for key, (kernel, plain) in calls.items():
+            ms = median_ms(kernel, 7, 10)
+            plain_ms = median_ms(plain, 3, 1)
+            bound, by = probe_bound_ms(key, n)
+            times[(label, key)] = (ms, plain_ms)
+            print(f"[{card}] {label} {n} words {key}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+                  f"bound {bound:.4f} ms ({by}); {2 * n / ms / 1e6:.1f} GB/s of the words' bytes")
+        print(f"[{card}] {label}: K4 read_xor {times[(label, 'read_xor')][0]:.4f} ms "
+              f"({2 * n / times[(label, 'read_xor')][0] / 1e6:.1f} GB/s) beside the float32-view "
+              f"sum {ref_ms:.4f} ms ({2 * n / ref_ms / 1e6:.1f} GB/s)")
+        cap = max((2 ** 31 - 1) // (planes.shape[0] * GW), 1)   # the count's repeat rule
+        probe = {"transpose_xor": lambda r: P.transpose_xor_cuda(x, r),
+                 "transform_xor": lambda r: P.transform_xor_pre_cuda(planes, r),
+                 "raw": lambda r: P.stream_sums_raw_cuda(planes, min(r, cap))}
+        for r in (1, 2, 4, 8):
+            t = {key: median_ms(lambda: fn(r), 5, 5) for key, fn in probe.items()}
+            print(f"[{card}] {label} repeat {r}: transpose {t['transpose_xor']:.4f} ms, "
+                  f"transform {t['transform_xor']:.4f} ms, count at repeat {min(r, cap)} "
+                  f"{t['raw']:.4f} ms")
+        # every rep really runs: the time grows with repeat
+        for key, r in GROWTH_REPEAT.items():
+            if key == "raw" and r > cap:
+                print(f"{label}: the count's repeat rule caps it at {cap}; growth checked at 64Mi")
+                continue
+            t1, tr = median_ms(lambda: probe[key](1), 5, 5), median_ms(lambda: probe[key](r), 5, 5)
+            print(f"[{card}] {label} {key}: repeat {r} {tr:.4f} ms = {tr / t1:.2f}x repeat 1 "
+                  f"{t1:.4f} ms (must be >= {GROWTH_MIN}x)")
+            assert tr >= GROWTH_MIN * t1, (label, key, r, tr, t1)
+        del x, planes
+    return times
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise RuntimeError("chip_smoke needs a CUDA device; torch sees none")
@@ -689,6 +870,7 @@ def main() -> int:
     check_kernels(max_err)
     check_pre_kernel(max_err)
     check_words_kernel(max_err)
+    check_probe_kernels(max_err)
 
     for mode in K.LAUNCHES:
         K.LAUNCHES[mode] = 0
@@ -720,8 +902,16 @@ def main() -> int:
         assert all(K.LAUNCHES[m] > 0 for m in ("flagstat", "flagstat_report", "pre",
                                                "words")), K.LAUNCHES
 
+    for mode in K.LAUNCHES:
+        K.LAUNCHES[mode] = 0
+    drive_measurement_path()
+    measure_launches = dict(K.LAUNCHES)
+    print(f"measurement-path launches (phase 4i): {measure_launches}")
+    assert all(v > 0 for v in measure_launches.values()), measure_launches
+
     times = time_kernels(na_words, card)
     pre_times = time_pre_kernel(na_words, card)
+    probe_times = time_probe_kernels(na_words, card)
     assert "jax" not in sys.modules and "libflagstats_tpu" not in sys.modules
 
     kernels = [{
@@ -765,6 +955,20 @@ def main() -> int:
         "bound_by": "bytes",
         "library_ms": None,
     })
+    # no single PyTorch call computes an xor fold or these probes
+    kernels += [{
+        "name": name,
+        "route": "cuda",
+        "source": PROBE_SOURCE,
+        "replaces": replaces,
+        "launches": measure_launches[key],
+        "max_abs_err": max_err[key],
+        "ms": probe_times[("64Mi", key)][0],
+        "plain_ms": probe_times[("64Mi", key)][1],
+        "bound_ms": probe_bound_ms(key, WORDS_64MI)[0],
+        "bound_by": probe_bound_ms(key, WORDS_64MI)[1],
+        "library_ms": None,
+    } for name, key, replaces in PROBE_KERNELS]
     print(json.dumps({"kernels": kernels}))
     print(card)  # as nvidia-smi --query-gpu=name,power.limit prints it
     print(json.dumps({"ok": True, "device": {

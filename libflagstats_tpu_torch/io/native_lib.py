@@ -1,12 +1,13 @@
 """ctypes loader for the native host library (C++, built at first use).
 
-The port builds two of the JAX package's C++ host sources, from
-``libflagstats_tpu/io/native/``: ``flagstats_io.cpp`` (the framed LZ4 and
-Zstd block codecs, the parallel framed-stream decoder, the fused framed
-decode+count and the AVX2 host bit transpose) and ``flagstats_host.cpp``
-(the AVX2 host flagstat and pospopcnt kernels). It finds them by path,
-relative to this file: the two packages are siblings in the repository
-and in the wheel. Importing ``libflagstats_tpu.io`` would import jax.
+The port builds its own copies of two of the JAX package's C++ host
+sources, kept in ``io/csrc/`` byte for byte equal to
+``libflagstats_tpu/io/native/`` (tests/test_torch_native_sources.py):
+``flagstats_io.cpp`` (the framed LZ4 and Zstd block codecs, the parallel
+framed-stream decoder, the fused framed decode+count and the AVX2 host
+bit transpose) and ``flagstats_host.cpp`` (the AVX2 host flagstat and
+pospopcnt kernels). Neither includes a local header, and the port
+builds no file of the JAX package.
 
 g++ builds them into ``build/torch_host/``, keyed on a hash of the
 sources, the flags and the host tag, through a temp file and a rename,
@@ -31,9 +32,9 @@ import threading
 from pathlib import Path
 
 _HERE = Path(__file__).resolve().parent
-NATIVE_DIR = _HERE.parent.parent / "libflagstats_tpu" / "io" / "native"
-SOURCES = (NATIVE_DIR / "flagstats_io.cpp", NATIVE_DIR / "flagstats_host.cpp")
-COMPAT_DIR = _HERE / "csrc" / "compat"
+CSRC = _HERE / "csrc"
+SOURCES = (CSRC / "flagstats_io.cpp", CSRC / "flagstats_host.cpp")
+COMPAT_DIR = CSRC / "compat"
 BUILD_DIR = _HERE.parent.parent / "build" / "torch_host"
 CXX_FLAGS = ("-O3", "-march=native", "-std=c++17", "-shared", "-fPIC",
              "-pthread", "-Wl,--no-undefined")

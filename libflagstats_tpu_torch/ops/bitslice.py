@@ -248,7 +248,7 @@ def pretranspose_host_np(arr: np.ndarray) -> np.ndarray:
     network.
 
     This is the NumPy reference for the AVX2 implementation in
-    libflagstats_tpu/io/native/flagstats_io.cpp (lfs_bit_transpose); the
+    io/csrc/flagstats_io.cpp (lfs_bit_transpose); the
     pretransposed kernel (K2) consumes this format and does no
     transpose.
     """

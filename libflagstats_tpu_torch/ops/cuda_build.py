@@ -112,5 +112,12 @@ def load() -> ctypes.CDLL:
         for name in ("lfs_words_block_words", "lfs_words_flush_bodies"):
             getattr(lib, name).argtypes = []
             getattr(lib, name).restype = ctypes.c_int
+        vp, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
+        for name, args in (("lfs_read_xor", [vp, i64, vp, vp]),
+                           ("lfs_transpose_xor", [vp, i64, i32, vp, vp]),
+                           ("lfs_transform_xor", [vp, i64, i32, vp, vp]),
+                           ("lfs_stream_sums_raw", [vp, i64, i32, vp, vp])):
+            getattr(lib, name).argtypes = args
+            getattr(lib, name).restype = ctypes.c_int
         _lib = lib
     return _lib

@@ -48,9 +48,12 @@ N_STREAMS = {"flagstat": B.N_STREAMS, "flagstat_report": B.N_REPORT_STREAMS,
 
 #: K2's launch counters: flagstat and report mode over plane tiles
 PRE_MODES = ("pre", "pre_report")
+#: the measurement kernels' launch counters (ops/probe_kernels.py): K4
+#: and the three K7 stage probes
+PROBES = ("read_xor", "raw", "transpose_xor", "transform_xor")
 #: kernel launches per mode, counted where the kernel is launched and
 #: nowhere else ("words": K6, ops/words_kernels.py)
-LAUNCHES = {m: 0 for m in MODES + PRE_MODES + ("words",)}
+LAUNCHES = {m: 0 for m in MODES + PRE_MODES + ("words",) + PROBES}
 
 #: packed plane-tile row orders: the flagstat transform never reads the
 #: planes of FLAG bits 12-15 (nor, in report mode, of bits 4 and 5), so

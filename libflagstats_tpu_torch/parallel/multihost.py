@@ -192,3 +192,41 @@ def flagstat_multihost_file(path, codec: str | int = "lz4", impl: str | None = N
     local = C.read_framed_range(path, codec, start, stop, n_threads=n_threads)
     return flagstat_multihost(local, total_words=sum(words), impl=impl,
                               pad_to_words=max(words), device=device)
+
+
+def scaling_sweep(n_words: int = 1 << 24, impl: str | None = None, device_counts=None,
+                  iters: int = 3, devices=None) -> list[dict]:
+    """flags/s of the sharded count at increasing device counts
+    (BASELINE.json config #5): for each count nd, the column, resident on
+    the first device, split over the first nd entries of ``devices``
+    (default every CUDA device; entries may repeat, e.g. ``["cpu"] * 2``)
+    and timed per call with ``bench.harness.kernel_time`` on the first
+    device (CUDA events there; the merge onto it waits for every shard).
+    The counters are checked against the host oracle before any timing.
+    ``impl``: a sharded impl, default ``"cuda"`` (``"torch"`` when the
+    first device is the CPU)."""
+    from ..bench.harness import kernel_time
+    from ..oracle import flagstat_numpy, generate_flags
+
+    devs = data_devices(devices)
+    if impl is None:
+        impl = D.auto_impl(n_words, devs[0])
+    if device_counts is None:
+        device_counts = [d for d in (1, 2, 4, 8, 16, 32) if d <= len(devs)]
+    x_host = generate_flags(n_words, seed=0, full_range=True)
+    ref = flagstat_numpy(x_host)
+    x = as_words(x_host).to(devs[0])
+    results = []
+    for nd in device_counts:
+        sub = devs[:nd]
+        total, fail = sharded_sums(x, sub, impl)
+        got = assemble_counters(total, fail, n_words).cpu().numpy().astype(np.uint64)
+        if not (got == ref).all():
+            raise AssertionError(f"sharded counters on {nd} devices != oracle: {got} {ref}")
+        best = kernel_time(lambda a: torch.cat(sharded_sums(a, sub, impl)), x,
+                           iters=iters, device=sub[0])
+        results.append({"devices": nd, "words_per_s": n_words / best, "min_s": best})
+    base = results[0]["words_per_s"]
+    for r in results:
+        r["scaling_efficiency"] = r["words_per_s"] / (base * r["devices"])
+    return results

@@ -104,6 +104,10 @@ def test_import_pulls_in_no_jax():
         "import libflagstats_tpu_torch.io.codec, libflagstats_tpu_torch.bench.profiling\n"
         "import libflagstats_tpu_torch.ops.words_kernels, libflagstats_tpu_torch.parallel\n"
         "import libflagstats_tpu_torch.parallel.sharded, libflagstats_tpu_torch.parallel.multihost\n"
+        "import libflagstats_tpu_torch.ops.probe_kernels, libflagstats_tpu_torch.bench.harness\n"
+        "import libflagstats_tpu_torch.bench.refcache, libflagstats_tpu_torch.bench.kernels\n"
+        "import libflagstats_tpu_torch.bench.instrumented, libflagstats_tpu_torch.cli\n"
+        "import libflagstats_tpu_torch.__main__, libflagstats_tpu_torch.tools.stage_decomposition\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m.split('.')[0] in ('jax', 'jaxlib', 'libflagstats_tpu'))\n"
         "assert not bad, bad\n"
