@@ -27,12 +27,18 @@ it and read just after: phase 4 (a-d) the in-memory entry points, phase
 4i the measurement path (the `kernels`, `instrumented` and `inmemory`
 subcommands, the stage decomposition and the scaling sweep). Phase 3d
 holds the read roofline (K4) and the three stage probes (K7) against
-their plain versions and host references; phase 5d times them.
+their plain versions and host references; phase 5d times them. Phase 4j
+drives the tuning tools at full width (packed_probe, kernel_sweep,
+crossover_sweep, pipeline_balance), the set-algebra functions on the
+NA12878 column seen as a bitmap, and one profiler trace; phase 3e holds
+the fold kernel (K8) and the set-algebra kernel (K9) against their plain
+versions and numpy, and phase 5e times them.
 """
 from __future__ import annotations
 
 import concurrent.futures as cf
 import contextlib
+import glob
 import io
 import json
 import os
@@ -50,6 +56,7 @@ import libflagstats_tpu_torch as L
 import libflagstats_tpu_torch.parallel.multihost as MH
 from libflagstats_tpu_torch import cli
 from libflagstats_tpu_torch import flags as F
+from libflagstats_tpu_torch.bench import profiling
 from libflagstats_tpu_torch.bench.profiling import SectionTimer
 from libflagstats_tpu_torch.config import CONFIG
 from libflagstats_tpu_torch.datasets import na12878_report_values, synth_na12878
@@ -61,11 +68,13 @@ from libflagstats_tpu_torch.ops import cuda_build
 from libflagstats_tpu_torch.ops import dispatch as D
 from libflagstats_tpu_torch.ops import kernels as K
 from libflagstats_tpu_torch.ops import probe_kernels as P
+from libflagstats_tpu_torch.ops import setalgebra as SA
 from libflagstats_tpu_torch.ops import words_kernels as W
 from libflagstats_tpu_torch.ops.torch_ops import assemble_counters
 from libflagstats_tpu_torch.oracle import flagstat_numpy, generate_flags
 from libflagstats_tpu_torch.parallel import flagstat_sharded
-from libflagstats_tpu_torch.tools import stage_decomposition
+from libflagstats_tpu_torch.tools import (crossover_sweep, kernel_sweep, packed_probe,
+                                          pipeline_balance, stage_decomposition)
 
 WORDS_64MI = 64 << 20
 GW = K.GROUP_WORDS
@@ -73,6 +82,12 @@ SOURCE = "libflagstats_tpu_torch/ops/csrc/flagstat_kernels.cu"
 PRE_SOURCE = "libflagstats_tpu_torch/ops/csrc/flagstat_pre_kernels.cu"
 WORDS_SOURCE = "libflagstats_tpu_torch/ops/csrc/flagstat_words_kernels.cu"
 PROBE_SOURCE = "libflagstats_tpu_torch/ops/csrc/flagstat_probe_kernels.cu"
+SETOP_SOURCE = "libflagstats_tpu_torch/ops/csrc/setalgebra_kernels.cu"
+#: the fold's three cases (tools/packed_probe.py): name, packed tiles, rows
+FOLD_CASES = (("full32", False, None), ("sub24", False, tuple(sorted(B.NEEDED_ROWS))),
+              ("pack24", True, None))
+SETOPS = {"intersect": np.bitwise_and, "union": np.bitwise_or,
+          "diff": lambda a, b: a & ~b, "popcnt": lambda a, b: a}
 #: the probe kernels, their launch counters and the TPU kernels they replace
 PROBE_KERNELS = (("read_xor_kernel", "read_xor", "libflagstats_tpu/ops/pallas_kernels.py:605"),
                  ("stream_sums_raw_kernel", "raw", "libflagstats_tpu/ops/pallas_kernels.py:403"),
@@ -323,6 +338,72 @@ def check_probe_kernels(max_err: dict) -> None:
               f"K7a/b/c at repeat 1, 2, 3, 8 = plain = host reference")
     print(f"phase 3d: {cases} cases, kernel = plain = host reference exactly (max_abs_err "
           f"{ {k: max_err[k] for k in K.PROBES} })")
+
+
+def bit_count(u32: np.ndarray) -> int:
+    return int(np.bitwise_count(u32).sum(dtype=np.int64))
+
+
+def check_fold_and_setop(max_err: dict) -> None:
+    """Phase 3e: K8 = plain = numpy fold for the three row sets and an
+    empty one; K9 = plain = numpy bit count for the four operations,
+    unaligned starts and 2^31 set bits included. Exactly."""
+    rng = np.random.default_rng(17)
+    needed = sorted(B.NEEDED_ROWS)
+    group_counts = [0, 1, 7, 8, 1024, 1031]
+    cases = 0
+    for g in group_counts:
+        host32 = rng.integers(0, 1 << 32, size=(g, 32, 8, 128), dtype=np.uint64).astype(np.uint32)
+        host24 = np.ascontiguousarray(host32[:, needed])
+        dev = {False: torch.from_numpy(host32.view(np.int32)).cuda(),
+               True: torch.from_numpy(host24.view(np.int32)).cuda()}
+        for name, packed, rows in FOLD_CASES + (("no row", False, ()),):
+            before = K.LAUNCHES["fold_xor"]
+            got = P.digest(P.fold_xor_cuda(dev[packed], rows))
+            plain = P.digest(P.fold_xor_plain(dev[packed], rows))
+            want = P.fold_xor_np(host24 if packed else host32, rows)
+            torch.cuda.synchronize()
+            assert K.LAUNCHES["fold_xor"] == before + (g > 0 and name != "no row"), (name, g)
+            max_err["fold_xor"] = max(max_err["fold_xor"], abs(got - plain), abs(got - want))
+            assert got == plain == want, (name, g, got, plain, want)
+            cases += 1
+    print(f"phase 3e: K8 fold_xor: {cases} cases (full32, sub24, pack24 and no row at group "
+          f"counts {group_counts}), kernel = plain = numpy exactly (max_abs_err "
+          f"{max_err['fold_xor']})")
+
+    def same(a, b, ha, hb, where):
+        for op, f in SETOPS.items():
+            second = None if op == "popcnt" else b
+            before = K.LAUNCHES["setop"]
+            got = int(SA.setop_count_cuda(a, second, op))
+            plain = int(SA.setop_count_plain(a, second, op))
+            want = bit_count(f(ha, hb))
+            assert K.LAUNCHES["setop"] == before + (a.numel() > 0), (where, op)
+            max_err["setop"] = max(max_err["setop"], abs(got - plain), abs(got - want))
+            assert got == plain == want, (where, op, got, plain, want)
+
+    cases = 0
+    lane_counts = [0, 1, 250, 16384, WORDS_64MI // 2]   # 0, 4, 1000, 65536 bytes; 64Mi words
+    for n in lane_counts:
+        ha = rng.integers(0, 1 << 32, size=n + 3, dtype=np.uint64).astype(np.uint32)
+        hb = rng.integers(0, 1 << 32, size=n + 3, dtype=np.uint64).astype(np.uint32)
+        a = torch.from_numpy(ha.view(np.int32)).cuda()
+        b = torch.from_numpy(hb.view(np.int32)).cuda()
+        # starts 16-byte aligned, both 4 bytes off, off by different amounts
+        for oa, ob in ((0, 0), (1, 1), (1, 2), (3, 0)):
+            same(a[oa:oa + n], b[ob:ob + n], ha[oa:oa + n], hb[ob:ob + n], (n, oa, ob))
+            cases += 4
+    ones = torch.full((1 << 26,), -1, dtype=torch.int32, device="cuda")
+    for op, second, want in (("popcnt", None, 1 << 31), ("union", ones, 1 << 31),
+                             ("intersect", ones, 1 << 31), ("diff", ones, 0)):
+        got = int(SA.setop_count_cuda(ones, second, op))
+        plain = int(SA.setop_count_plain(ones, second, op))
+        max_err["setop"] = max(max_err["setop"], abs(got - plain), abs(got - want))
+        assert got == plain == want, (op, got, plain, want)
+        cases += 1
+    print(f"phase 3e: K9 setop_count: {cases} cases (4 operations x lane counts {lane_counts} "
+          f"x aligned, 4 bytes off and unequally off starts; 2^26 all-ones lanes = 2^31 set "
+          f"bits), kernel = plain = numpy exactly (max_abs_err {max_err['setop']})")
 
 
 def launched(before: dict, mode: str) -> None:
@@ -632,11 +713,11 @@ def drive_parallel_path(na_words: np.ndarray, na_path: str, tmp: str, card: str)
     return workers
 
 
-def captured(argv: list) -> tuple[int, list]:
-    """cli.main(argv) with its standard output kept and echoed."""
+def captured(argv: list, main=cli.main) -> tuple[int, list]:
+    """main(argv) with its standard output kept and echoed."""
     out = io.StringIO()
     with contextlib.redirect_stdout(out):
-        rc = cli.main(argv)
+        rc = main(argv)
     lines = out.getvalue().splitlines()
     for line in lines:
         print(f"    {line}")
@@ -653,9 +734,9 @@ def drive_measurement_path() -> dict:
     assert len(footer) == 1, lines
     kind = footer[0].split("]")[0][len("[roofline:"):]
     assert set(kind.split("+")) <= {"read_xor_cuda", "read_sum"}, kind
-    timed = [line.split("\t") for line in lines[1:]
-             if not line.startswith(("[roofline", "setop_"))]
-    assert len(timed) == 9, timed
+    timed = [line.split("\t") for line in lines[1:] if not line.startswith("[roofline")]
+    assert len(timed) == 11 and [c[0] for c in timed[-2:]] == ["setop_popcnt",
+                                                               "setop_intersect"], timed
     for cols in timed:
         assert float(cols[5].rstrip("!")) <= 1.05, cols
     print(f"main path (i): kernels roster, {len(timed)} timed rows, no MISMATCH, every row "
@@ -677,6 +758,74 @@ def drive_measurement_path() -> dict:
     assert [r["devices"] for r in sweep] == [1] and sweep[0]["words_per_s"] > 0, sweep
     print(f"main path (i): scaling_sweep on cuda:0: {sweep}")
     return stages
+
+
+def drive_tools_path(na_words: np.ndarray, tmp: str) -> None:
+    """Phase 4j: the tuning tools at full width, each through its main();
+    the set-algebra functions on the NA12878 column seen as a bitmap;
+    one profiler trace of a 64Mi flagstats_u16 call."""
+    rc, lines = captured([], packed_probe.main)
+    assert rc == 0 and [ln.split("\t")[0] for ln in lines[1:4]] == [c[0] for c in FOLD_CASES], lines
+    assert all(ln.endswith("\tOK") for ln in lines[1:4]), lines
+    ratios = {ln.split()[1]: float(ln.split()[3]) for ln in lines if ln.startswith("# ")}
+    print(f"main path (j): packed_probe at {packed_probe.GROUPS} groups: every case OK; "
+          f"time ratios to full32 {ratios}")
+
+    rc, lines = captured([], kernel_sweep.main)
+    rows = [ln for ln in lines if ln.startswith("mode=")]
+    assert rc == 0 and len(rows) == 7 * len(kernel_sweep.WAVES), lines
+    assert all(ln.endswith(", OK") for ln in rows), rows
+    print(f"main path (j): kernel_sweep at {kernel_sweep.N_WORDS} words: {len(rows)} rows "
+          f"(7 kernel layouts x {kernel_sweep.WAVES} waves), every one OK")
+
+    sizes = ["1024", str(1 << 18), str(WORDS_64MI)]
+    for flag in ([], ["--pospopcnt"]):
+        rc, lines = captured(flag + sizes, crossover_sweep.main)
+        table = [ln.split("\t") for ln in lines if ln[:1].isdigit()]
+        assert rc == 0 and [r[0] for r in table] == sizes, lines
+        assert all(float(v) > 0 for r in table for v in r[1:]), table   # no nan: every tier ran
+        assert sum(ln.startswith("# suggested") for ln in lines) == 4, lines
+    print(f"main path (j): crossover_sweep and --pospopcnt at {sizes} words: every tier timed")
+
+    rc, lines = captured([], pipeline_balance.main)
+    legs = [ln for ln in lines if ln.startswith("== ")]
+    assert rc == 0 and len(legs) == 5 and all(ln.endswith("check=ok") for ln in legs), lines
+    assert sum(ln.startswith("overlap benefit") for ln in lines) == 2, lines
+    print(f"main path (j): pipeline_balance at {pipeline_balance.N_WORDS} words: 5 legs, "
+          f"every check=ok")
+
+    # the column's 1,649,083,784 bytes as a bitmap, and a seeded second one
+    a_host = na_words.view(np.uint32)
+    b_host = np.random.default_rng(5).integers(0, 1 << 32, size=a_host.size, dtype=np.uint32)
+    a, b = torch.from_numpy(na_words).cuda(), torch.from_numpy(b_host.view(np.int32)).cuda()
+    before = K.LAUNCHES["setop"]
+    for fn, args_host, args_dev in ((L.popcnt, (a_host,), (a,)),
+                                    (L.intersect_count, (a_host, b_host), (a, b)),
+                                    (L.union_count, (a_host, b_host), (a, b)),
+                                    (L.diff_count, (a_host, b_host), (a, b))):
+        want = fn(*args_host, impl="native")
+        t0 = time.perf_counter()
+        got = fn(*args_dev)
+        wall = time.perf_counter() - t0
+        assert got == want, (fn.__name__, got, want)
+        print(f"main path (j): {fn.__name__} on {a_host.nbytes} bytes per bitmap, on the card: "
+              f"{got} = the native host count ({wall * 1e3:.3f} ms host wall, bitmaps resident)")
+    assert L.popcnt(na_words) == L.popcnt(a_host, impl="native")   # a host column: copied
+    assert K.LAUNCHES["setop"] == before + 5, K.LAUNCHES
+    del a, b
+
+    x = generate_flags(WORDS_64MI, seed=7, full_range=True)
+    logdir = os.path.join(tmp, "trace")
+    with profiling.trace(logdir):
+        c = L.flagstats_u16(x)
+        torch.cuda.synchronize()
+    files = glob.glob(os.path.join(logdir, "*.trace.json"))
+    assert len(files) == 1 and (c == flagstat_numpy(x)).all(), files
+    with open(files[0]) as f:
+        text = f.read()
+    assert "stream_sums_kernel" in text, "the trace does not name K1's kernel"
+    print(f"main path (j): profiling.trace around flagstats_u16(64Mi words): "
+          f"{os.path.getsize(files[0])} bytes of Chrome trace, names stream_sums_kernel")
 
 
 def median_ms(fn, runs: int, reps: int) -> float:
@@ -841,6 +990,57 @@ def time_probe_kernels(na_words: np.ndarray, card: str) -> dict:
     return times
 
 
+def time_fold_and_setop(na_words: np.ndarray, card: str) -> dict:
+    """Phase 5e: K8's three cases at 64Mi words (1024 groups) and K9's
+    popcnt and intersect at 64Mi words and at NA12878's bytes, each
+    beside its plain version and its bound (the bytes it must read over
+    the nominal device-memory rate), CUDA events, median of runs."""
+    times = {}
+    rng = np.random.default_rng(23)
+    groups = WORDS_64MI // GW
+    host32 = rng.integers(0, 1 << 32, size=(groups, 32, 8, 128), dtype=np.uint64).astype(np.uint32)
+    planes = {False: torch.from_numpy(host32.view(np.int32)).cuda()}
+    planes[True] = planes[False][:, sorted(B.NEEDED_ROWS)].contiguous()
+    for name, packed, rows in FOLD_CASES:
+        t = planes[packed]
+        nbytes = groups * (len(rows) if rows else t.shape[1]) * 4096
+        ms = median_ms(lambda: P.fold_xor_cuda(t, rows), 7, 10)
+        plain_ms = median_ms(lambda: P.fold_xor_plain(t, rows), 5, 1)
+        times[("64Mi", name)] = (ms, plain_ms, (nbytes + 4) / HBM_BYTES_PER_S * 1e3)
+        print(f"[{card}] 64Mi K8 fold_xor {name}: kernel {ms:.4f} ms ({nbytes / ms / 1e6:.1f} "
+              f"GB/s of its rows), plain {plain_ms:.4f} ms, bound "
+              f"{times[('64Mi', name)][2]:.4f} ms (bytes)")
+    full = times[("64Mi", "full32")][0]
+    print(f"[{card}] K8 sub24/full32 = {times[('64Mi', 'sub24')][0] / full:.3f}, pack24/full32 = "
+          f"{times[('64Mi', 'pack24')][0] / full:.3f} (0.75 = the whole traffic cut)")
+    del planes
+
+    x64 = generate_flags(WORDS_64MI, seed=11, full_range=True)
+    for label, words in (("64Mi", x64), ("NA12878", na_words)):
+        a = torch.from_numpy(words).cuda().view(torch.int32)
+        b = torch.from_numpy(np.random.default_rng(29).integers(
+            0, 1 << 32, size=a.numel(), dtype=np.uint32).view(np.int32)).cuda()
+        k4_ms = median_ms(lambda: P.read_xor_cuda(a.view(torch.int16)), 7, 10)
+        for op, second in (("popcnt", None), ("intersect", b)):
+            nbytes = 4 * a.numel() * (1 if second is None else 2)
+            ms = median_ms(lambda: SA.setop_count_cuda(a, second, op), 7, 10)
+            plain_ms = median_ms(lambda: SA.setop_count_plain(a, second, op), 3, 1)
+            times[(label, op)] = (ms, plain_ms, (nbytes + 8) / HBM_BYTES_PER_S * 1e3)
+            print(f"[{card}] {label} K9 setop_count {op} over {nbytes} bytes: kernel {ms:.4f} ms "
+                  f"({nbytes / ms / 1e6:.1f} GB/s), plain {plain_ms:.4f} ms, bound "
+                  f"{times[(label, op)][2]:.4f} ms (bytes); K4 over one bitmap {k4_ms:.4f} ms")
+        del a, b
+    return times
+
+
+@contextlib.contextmanager
+def phase(name: str):
+    """Print what a phase took (host clock), so a run says where its time went."""
+    t0 = time.perf_counter()
+    yield
+    print(f"[phase {name}: {time.perf_counter() - t0:.1f} s]", flush=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise RuntimeError("chip_smoke needs a CUDA device; torch sees none")
@@ -867,14 +1067,17 @@ def main() -> int:
     check_host_library(host_seconds)
 
     max_err = dict.fromkeys(K.LAUNCHES, 0)
-    check_kernels(max_err)
-    check_pre_kernel(max_err)
-    check_words_kernel(max_err)
-    check_probe_kernels(max_err)
+    with phase("3-3e, kernels against plain versions"):
+        check_kernels(max_err)
+        check_pre_kernel(max_err)
+        check_words_kernel(max_err)
+        check_probe_kernels(max_err)
+        check_fold_and_setop(max_err)
 
     for mode in K.LAUNCHES:
         K.LAUNCHES[mode] = 0
-    na_words = drive_main_path()
+    with phase("4a-d, in-memory entry points"):
+        na_words = drive_main_path()
     launches = dict(K.LAUNCHES)
     print(f"main-path launches (phase 4 a-d): {launches}")
     assert all(launches[m] > 0 for m in K.MODES), launches
@@ -882,7 +1085,8 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as tmp:
         for mode in K.LAUNCHES:
             K.LAUNCHES[mode] = 0
-        na_path = drive_stream_path(na_words, card, tmp)
+        with phase("4e-f, streaming"):
+            na_path = drive_stream_path(na_words, card, tmp)
         stream_launches = dict(K.LAUNCHES)
         print(f"streaming-path launches (phase 4 e-f): {stream_launches}")
         assert all(stream_launches[m] > 0 for m in K.PRE_MODES), stream_launches
@@ -895,7 +1099,8 @@ def main() -> int:
 
         for mode in K.LAUNCHES:
             K.LAUNCHES[mode] = 0
-        workers = drive_parallel_path(na_words, na_path, tmp, card)
+        with phase("4h, data-parallel"):
+            workers = drive_parallel_path(na_words, na_path, tmp, card)
         parallel_launches = {m: K.LAUNCHES[m] + workers[m] for m in K.LAUNCHES}
         print(f"data-parallel launches (phase 4h): this process {dict(K.LAUNCHES)}, "
               f"with its workers' {parallel_launches}")
@@ -904,14 +1109,28 @@ def main() -> int:
 
     for mode in K.LAUNCHES:
         K.LAUNCHES[mode] = 0
-    drive_measurement_path()
+    with phase("4i, measurement path"):
+        drive_measurement_path()
     measure_launches = dict(K.LAUNCHES)
     print(f"measurement-path launches (phase 4i): {measure_launches}")
-    assert all(v > 0 for v in measure_launches.values()), measure_launches
+    # every kernel but the fold, which only the tools path launches
+    assert all(v > 0 for m, v in measure_launches.items() if m != "fold_xor"), measure_launches
 
-    times = time_kernels(na_words, card)
-    pre_times = time_pre_kernel(na_words, card)
-    probe_times = time_probe_kernels(na_words, card)
+    for mode in K.LAUNCHES:
+        K.LAUNCHES[mode] = 0
+    with tempfile.TemporaryDirectory() as tmp, phase("4j, tools path"):
+        drive_tools_path(na_words, tmp)
+    tools_launches = dict(K.LAUNCHES)
+    print(f"tools-path launches (phase 4j): {tools_launches}")
+    assert tools_launches["fold_xor"] > 0 and tools_launches["setop"] > 0, tools_launches
+    assert all(tools_launches[m] > 0 for m in K.MODES + K.PRE_MODES + ("words", "read_xor")), \
+        tools_launches
+
+    with phase("5-5e, kernel times"):
+        times = time_kernels(na_words, card)
+        pre_times = time_pre_kernel(na_words, card)
+        probe_times = time_probe_kernels(na_words, card)
+        tool_times = time_fold_and_setop(na_words, card)
     assert "jax" not in sys.modules and "libflagstats_tpu" not in sys.modules
 
     kernels = [{
@@ -969,6 +1188,24 @@ def main() -> int:
         "bound_by": probe_bound_ms(key, WORDS_64MI)[1],
         "library_ms": None,
     } for name, key, replaces in PROBE_KERNELS]
+    kernels += [{
+        "name": name,
+        "route": "cuda",
+        "source": source,
+        "replaces": replaces,
+        "launches": tools_launches[key],
+        "max_abs_err": max_err[key],
+        "ms": tool_times[shape][0],
+        "plain_ms": tool_times[shape][1],
+        "bound_ms": tool_times[shape][2],
+        "bound_by": "bytes",
+        "library_ms": None,
+    } for name, key, source, replaces, shape in (
+        ("fold_xor_kernel", "fold_xor", PROBE_SOURCE, "tools/packed_probe.py:72",
+         ("64Mi", "full32")),
+        # no Pallas kernel: the XLA-fused population_count + sum
+        ("setop_count_kernel<popcnt>", "setop", SETOP_SOURCE,
+         "libflagstats_tpu/ops/setalgebra.py:29", ("64Mi", "popcnt")))]
     print(json.dumps({"kernels": kernels}))
     print(card)  # as nvidia-smi --query-gpu=name,power.limit prints it
     print(json.dumps({"ok": True, "device": {

@@ -13,6 +13,8 @@ Public API:
   counters_to_report(c)    samtools flagstat report object
   flagstat_stream(path)    streaming flagstat of a framed LZ4/Zstd file
                            (io/stream.py)
+  popcnt / intersect_count / union_count / diff_count
+                           set-algebra popcounts over bitmaps (libalgebra.h)
 """
 from __future__ import annotations
 
@@ -26,6 +28,7 @@ from .flags import (  # noqa: F401
 )
 from .io.stream import flagstat_stream  # noqa: F401
 from .ops.dispatch import flagstats_u16, get_function, pospopcnt_u16  # noqa: F401
+from .ops.setalgebra import diff_count, intersect_count, popcnt, union_count  # noqa: F401
 from .report import FlagstatReport, counters_to_dict, counters_to_report  # noqa: F401
 
 __version__ = "0.1.0"

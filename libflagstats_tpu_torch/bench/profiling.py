@@ -1,12 +1,42 @@
-"""Wall-clock section timer for host pipeline stages.
+"""Profiling utilities: a device trace and a wall-clock section timer.
 
-The port's counterpart of ``SectionTimer`` in
-``libflagstats_tpu.bench.profiling``; the device trace helper there
-(``trace``, on jax.profiler) waits for a torch.profiler version."""
+The port of ``libflagstats_tpu.bench.profiling``: ``trace`` records with
+torch.profiler where the JAX package uses jax.profiler, and
+``SectionTimer`` times host pipeline stages."""
 from __future__ import annotations
 
 import contextlib
 import time
+from pathlib import Path
+
+
+@contextlib.contextmanager
+def trace(logdir: str | Path):
+    """Capture a trace of the CPU and, with a card, of the CUDA device
+    around a block:
+
+        with profiling.trace("trace_dir"):
+            fn(x)
+            torch.cuda.synchronize()
+
+    Device work must have finished before the block ends. A Chrome trace
+    file ``<time>.trace.json`` is written into ``logdir`` (made if
+    missing) when the block ends; open it with ui.perfetto.dev. Yields
+    ``logdir``."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    Path(logdir).mkdir(parents=True, exist_ok=True)
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    prof = profile(activities=activities)
+    prof.start()
+    try:
+        yield str(logdir)
+    finally:
+        prof.stop()
+        prof.export_chrome_trace(str(Path(logdir) / f"{time.time_ns()}.trace.json"))
 
 
 class SectionTimer:

@@ -6,7 +6,7 @@ sources, kept in ``io/csrc/`` byte for byte equal to
 ``flagstats_io.cpp`` (the framed LZ4 and Zstd block codecs, the parallel
 framed-stream decoder, the fused framed decode+count and the AVX2 host
 bit transpose) and ``flagstats_host.cpp`` (the AVX2 host flagstat and
-pospopcnt kernels). Neither includes a local header, and the port
+pospopcnt kernels and the POPCNT set-algebra counts). Neither includes a local header, and the port
 builds no file of the JAX package.
 
 g++ builds them into ``build/torch_host/``, keyed on a hash of the
@@ -130,6 +130,7 @@ def _bind(lib):
         ("lfs_flagstat_u16", i64, [vp, i64, vp, i32]),
         ("lfs_flagstat_framed", i64, [vp, i64, i32, i32, vp, vp]),
         ("lfs_pospopcnt_u16", i64, [vp, i64, vp, i32]),
+        ("lfs_setop_count", i64, [vp, vp, i64, i32, i32, vp]),
     ):
         fn = getattr(lib, name)
         fn.restype = res

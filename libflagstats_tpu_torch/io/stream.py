@@ -198,6 +198,20 @@ def _host_i32(t: torch.Tensor) -> np.ndarray:
     return t.cpu().numpy().astype(np.int32)
 
 
+def _chunk_sums(impl: str, chunk: torch.Tensor, report: bool):
+    """(C[k], F[k]) of one shipped chunk, enqueued on the chunk's device:
+    the count of the device stream. Module-level so that a measurement
+    can wrap it (tools/pipeline_balance.py synchronises after it to
+    forbid any overlap)."""
+    if impl == "torch":
+        return stream_sums_torch(chunk)
+    if impl == "cuda_pre":
+        sums = K.stream_sums_pre_cuda(chunk, report, packed=True)
+    else:
+        sums = K.stream_sums_cuda(chunk, "flagstat_report" if report else "flagstat")
+    return K._sums_to_streams(sums, report)
+
+
 def flagstat_stream(path, codec: str | int = "lz4", impl: str | None = None,
                     chunk_words: int | None = None, threads: int = 0,
                     checkpoint=None, report: bool = False, timer=None,
@@ -249,7 +263,6 @@ def flagstat_stream(path, codec: str | int = "lz4", impl: str | None = None,
                            "native host library, which did not build: "
                            f"{native_lib.BUILD_ERROR}")
     report = report and impl != "torch"
-    mode = "flagstat_report" if report else "flagstat"
 
     total = torch.zeros(F.N_BITS, dtype=torch.int64, device=dev)
     fail = torch.zeros_like(total)
@@ -299,12 +312,7 @@ def flagstat_stream(path, codec: str | int = "lz4", impl: str | None = None,
         with timer.section("h2d"):
             chunk = ring.ship(slot, size)
         with timer.section("dispatch"):
-            if impl == "torch":
-                c, f = stream_sums_torch(chunk)
-            else:
-                sums = (K.stream_sums_pre_cuda(chunk, report, packed=True) if pre
-                        else K.stream_sums_cuda(chunk, mode))
-                c, f = K._sums_to_streams(sums, report)
+            c, f = _chunk_sums(impl, chunk, report)
             total += c
             fail += f
             ring.release(slot)

@@ -145,19 +145,21 @@ cudaError_t wave_blocks(int* blocks) {
 }
 
 template <int MODE>
-cudaError_t launch(const void* x, int64_t n, unsigned long long* out, cudaStream_t stream) {
+cudaError_t launch(const void* x, int64_t n, unsigned long long* out, int blocks,
+                   cudaStream_t stream) {
   if (n <= 0) return cudaSuccess;  // a 0-block launch is an error
   const uintptr_t addr = reinterpret_cast<uintptr_t>(x);
   const uintptr_t aligned = addr & ~uintptr_t(15);
   const int64_t skip = (int64_t)(addr - aligned) / 2;
   const int64_t end = skip + n;
   const int64_t tiles = (end + kTileWords - 1) / kTileWords;
-  int blocks = 0;
-  cudaError_t e = wave_blocks<MODE>(&blocks);
+  int wave = 0;
+  cudaError_t e = wave_blocks<MODE>(&wave);
   if (e != cudaSuccess) return e;
-  if (blocks < 1) return cudaErrorInvalidConfiguration;
+  if (wave < 1) return cudaErrorInvalidConfiguration;
   const int64_t want = (tiles + kWarps - 1) / kWarps;
-  const int grid = (int)(want < blocks ? want : blocks);
+  const int64_t cap = blocks > 0 ? blocks : wave;
+  const int grid = (int)(want < cap ? want : cap);
   stream_sums_kernel<MODE><<<grid, kThreads, 0, stream>>>(
       reinterpret_cast<const uint16_t*>(aligned), skip, end, tiles, out);
   return cudaGetLastError();
@@ -169,14 +171,15 @@ extern "C" {
 
 // Adds the per-stream counts of the n uint16 words at x into out
 // (int64[Streams<mode>::n], zeroed by the caller), on `stream`.
-// x must be 2-byte aligned. Returns a cudaError_t.
-int lfs_stream_sums(int mode, const void* x, long long n, void* out, void* stream) {
+// x must be 2-byte aligned. blocks > 0 is the most blocks the grid gets
+// (a sweep's knob); 0 gives it one wave at most. Returns a cudaError_t.
+int lfs_stream_sums(int mode, const void* x, long long n, void* out, int blocks, void* stream) {
   auto* o = static_cast<unsigned long long*>(out);
   auto s = static_cast<cudaStream_t>(stream);
   switch (mode) {
-    case kFlagstat: return launch<kFlagstat>(x, n, o, s);
-    case kReport: return launch<kReport>(x, n, o, s);
-    case kPospopcnt: return launch<kPospopcnt>(x, n, o, s);
+    case kFlagstat: return launch<kFlagstat>(x, n, o, blocks, s);
+    case kReport: return launch<kReport>(x, n, o, blocks, s);
+    case kPospopcnt: return launch<kPospopcnt>(x, n, o, blocks, s);
     default: return cudaErrorInvalidValue;
   }
 }

@@ -127,14 +127,15 @@ __global__ void __launch_bounds__(kThreads)
 
 template <int MODE, int R>
 cudaError_t launch_pre(const void* planes, int64_t groups, unsigned long long* out,
-                       cudaStream_t stream) {
+                       int blocks, cudaStream_t stream) {
   if (groups <= 0) return cudaSuccess;  // a 0-block launch is an error
   if (reinterpret_cast<uintptr_t>(planes) % 16) return cudaErrorInvalidValue;
-  int blocks = 0;
-  cudaError_t e = wave_blocks(stream_sums_pre_kernel<MODE, R>, kThreads, &blocks);
+  int wave = 0;
+  cudaError_t e = wave_blocks(stream_sums_pre_kernel<MODE, R>, kThreads, &wave);
   if (e != cudaSuccess) return e;
-  if (blocks < 1) return cudaErrorInvalidConfiguration;
-  const int grid = (int)(groups < blocks ? groups : blocks);
+  if (wave < 1) return cudaErrorInvalidConfiguration;
+  const int64_t cap = blocks > 0 ? blocks : wave;
+  const int grid = (int)(groups < cap ? groups : cap);
   stream_sums_pre_kernel<MODE, R><<<grid, kThreads, 0, stream>>>(
       static_cast<const uint4*>(planes), groups, out);
   return cudaGetLastError();
@@ -146,17 +147,18 @@ extern "C" {
 
 // Adds the per-stream counts of `groups` (rows, 8, 128) uint32 plane
 // tiles at `planes` into out (int64[Streams<mode>::n], zeroed by the
-// caller), on `stream`. planes must be 16-byte aligned. Returns a
-// cudaError_t (cudaErrorInvalidValue for a (mode, rows) pair with no
-// kernel).
+// caller), on `stream`. planes must be 16-byte aligned. blocks > 0 is
+// the most blocks the grid gets (a sweep's knob); 0 gives it one wave at
+// most. Returns a cudaError_t (cudaErrorInvalidValue for a (mode, rows)
+// pair with no kernel).
 int lfs_stream_sums_pre(int mode, int rows, const void* planes, long long groups,
-                        void* out, void* stream) {
+                        void* out, int blocks, void* stream) {
   auto* o = static_cast<unsigned long long*>(out);
   auto s = static_cast<cudaStream_t>(stream);
-  if (mode == kFlagstat && rows == 32) return launch_pre<kFlagstat, 32>(planes, groups, o, s);
-  if (mode == kFlagstat && rows == 24) return launch_pre<kFlagstat, 24>(planes, groups, o, s);
-  if (mode == kReport && rows == 32) return launch_pre<kReport, 32>(planes, groups, o, s);
-  if (mode == kReport && rows == 20) return launch_pre<kReport, 20>(planes, groups, o, s);
+  if (mode == kFlagstat && rows == 32) return launch_pre<kFlagstat, 32>(planes, groups, o, blocks, s);
+  if (mode == kFlagstat && rows == 24) return launch_pre<kFlagstat, 24>(planes, groups, o, blocks, s);
+  if (mode == kReport && rows == 32) return launch_pre<kReport, 32>(planes, groups, o, blocks, s);
+  if (mode == kReport && rows == 20) return launch_pre<kReport, 20>(planes, groups, o, blocks, s);
   return cudaErrorInvalidValue;
 }
 

@@ -1,5 +1,6 @@
 // The measurement kernels for NVIDIA Hopper (sm_90a): the read roofline
-// (K4) and the three stage probes of the stage decomposition (K7).
+// (K4), the three stage probes of the stage decomposition (K7) and the
+// plane-row fold of the packed-layout probe (K8).
 //
 // Replaces these TPU kernels of libflagstats_tpu/ops/pallas_kernels.py:
 // * read_xor: `read_xor_pallas` (pallas_call :605, body
@@ -9,7 +10,10 @@
 // * transform_xor: `transform_xor_pallas_pre` (pallas_call :790, body
 //   :739);
 // * stream_sums_raw: `stream_sums_pallas_raw` (modes "flagstat_raw" and
-//   "flagstat_raw@N", through the pallas_call at :403).
+//   "flagstat_raw@N", through the pallas_call at :403);
+// * fold_xor: `make_fold.<locals>.fold` of tools/packed_probe.py
+//   (pallas_call :72, body :56-68), the read kernel of the packed-layout
+//   probe: the xor of every uint32 of the chosen rows of plane tiles.
 // Each computes what the TPU function computes, on any length it takes.
 //
 // The register pairing. The TPU functions over uint16 words view the
@@ -27,7 +31,10 @@
 // word for the pruned transpose, ~1 for the transform and ~3 for the
 // count (29 __popc, adds and xors per 32 words). `repeat` runs the stage that many times on data it chains,
 // so at a large enough repeat each probe is bound by its integer work,
-// and the difference of two repeats is that work's time.
+// and the difference of two repeats is that work's time. fold_xor reads
+// 4 KiB per chosen row per group and does one xor per 4 bytes: the bytes
+// of the chosen rows bound it, and the rows it leaves out cost nothing
+// only if they are really never loaded, which is what the probe asks.
 //
 // Design, and why.
 // * read_xor: a grid-stride loop over the 16-byte vectors wholly inside
@@ -58,6 +65,16 @@
 //   empty asm barrier does not do this (it is gone before ptxas runs),
 //   nor does a fixed xor (x ^ z ^ z repeats once the loop is unrolled):
 //   with either, the probe's time stayed flat in repeat on the H100.
+// * fold_xor: the TPU kernel carries an (8, 128) digest from grid step
+//   to grid step, 8 groups a step; blocks here run in no order, so
+//   nothing is carried and there is no step depth. A block takes one
+//   (group, chosen row) pair per load, one uint4 per thread (a row is 256
+//   uint4, the block's 256 threads), four pairs in flight per turn of its
+//   grid-stride loop. The row set is a run-time bit mask over the tile's
+//   rows, expanded once per block into a shared table; a row outside it
+//   is never addressed, and rows are whole 4 KiB, so no sector of an
+//   unread row is fetched. Any group count is taken; an empty mask or no
+//   group launches nothing.
 // * Blocks meet as in K1: a warp shuffle, a shared fold or sum, and one
 //   atomic per block (atomicXor into a zeroed uint32, atomicAdd into the
 //   zeroed int64 sums).
@@ -257,6 +274,46 @@ __global__ void __launch_bounds__(kThreads)
   flush_counts<NS, kThreads>(cnt, block_sum, out);
 }
 
+// ---- K8: fold_xor ----
+
+// The xor of every uint32 of the rows in `mask` (bit r = row r of the
+// tile's nrows rows) of `groups` plane tiles. sel[j] is the j-th chosen
+// row; pair p is (group p / nsel, row sel[p % nsel]).
+__device__ __forceinline__ uint4 load_pair(const uint4* planes, const int* sel, int nsel,
+                                           int nrows, int64_t p) {
+  return __ldg(planes + ((p / nsel) * nrows + sel[p % nsel]) * kRowVecs + threadIdx.x);
+}
+
+__device__ __forceinline__ void xor_into(uint4& acc, const uint4 v) {
+  acc.x ^= v.x;
+  acc.y ^= v.y;
+  acc.z ^= v.z;
+  acc.w ^= v.w;
+}
+
+__global__ void __launch_bounds__(kThreads)
+    fold_xor_kernel(const uint4* __restrict__ planes, int64_t groups, int nrows, uint32_t mask,
+                    unsigned int* __restrict__ out) {
+  __shared__ int sel[32];
+  if (threadIdx.x < 32 && ((mask >> threadIdx.x) & 1u))
+    sel[__popc(mask & ((1u << threadIdx.x) - 1u))] = threadIdx.x;
+  __syncthreads();
+  const int nsel = __popc(mask);
+  const int64_t pairs = groups * nsel;
+  const int64_t stride = gridDim.x;
+  uint4 acc = make_uint4(0u, 0u, 0u, 0u);
+  int64_t p = blockIdx.x;
+  for (; p + (kUnroll - 1) * stride < pairs; p += kUnroll * stride) {
+    uint4 r[kUnroll];
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) r[u] = load_pair(planes, sel, nsel, nrows, p + u * stride);
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) xor_into(acc, r[u]);
+  }
+  for (; p < pairs; p += stride) xor_into(acc, load_pair(planes, sel, nsel, nrows, p));
+  flush_xor<kThreads>(acc.x ^ acc.y ^ acc.z ^ acc.w, out);
+}
+
 template <typename Kernel>
 cudaError_t grid_for(Kernel kernel, int64_t want, int* grid) {
   int blocks = 0;
@@ -329,6 +386,22 @@ int lfs_stream_sums_raw(const void* planes, long long groups, int repeat, void* 
   stream_sums_raw_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint4*>(planes), groups, repeat, 0u, 0u,
       static_cast<unsigned long long*>(out));
+  return cudaGetLastError();
+}
+
+// Xors the fold of the rows in `mask` of `groups` (nrows, 8, 128) uint32
+// plane tiles at planes (16-byte aligned; nrows <= 32, mask within it)
+// into *out (uint32, zeroed by the caller).
+int lfs_fold_xor(const void* planes, long long groups, int nrows, unsigned int mask, void* out,
+                 void* stream) {
+  if (nrows < 1 || nrows > 32 || (nrows < 32 && (mask >> nrows))) return cudaErrorInvalidValue;
+  if (groups <= 0 || mask == 0) return cudaSuccess;  // a 0-block launch is an error
+  if (reinterpret_cast<uintptr_t>(planes) % 16) return cudaErrorInvalidValue;
+  int grid = 0;
+  cudaError_t e = grid_for(fold_xor_kernel, groups * __builtin_popcount(mask), &grid);
+  if (e != cudaSuccess) return e;
+  fold_xor_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint4*>(planes), groups, nrows, mask, static_cast<unsigned int*>(out));
   return cudaGetLastError();
 }
 

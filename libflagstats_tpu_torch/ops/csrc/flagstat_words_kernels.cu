@@ -201,7 +201,9 @@ extern "C" {
 
 // Adds the pass/fail bit counts of the n uint16 words at x into out
 // (int64[30], zeroed by the caller), on `stream`. x must be 2-byte
-// aligned. blocks > 0 caps the grid (tests); 0 runs one wave at most.
+// aligned. blocks > 0 is the most blocks the grid gets (a sweep's knob,
+// and the tests' way to run one thread far past a flush); 0 gives it one
+// wave at most.
 // Returns a cudaError_t.
 int lfs_stream_sums_words(const void* x, long long n, void* out, int blocks, void* stream) {
   if (n <= 0) return cudaSuccess;  // a 0-block launch is an error

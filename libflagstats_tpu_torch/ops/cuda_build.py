@@ -89,7 +89,7 @@ def load() -> ctypes.CDLL:
         lib = ctypes.CDLL(str(build()))
         lib.lfs_stream_sums.argtypes = [ctypes.c_int, ctypes.c_void_p,
                                         ctypes.c_int64, ctypes.c_void_p,
-                                        ctypes.c_void_p]
+                                        ctypes.c_int, ctypes.c_void_p]
         lib.lfs_stream_sums.restype = ctypes.c_int
         lib.lfs_wave_blocks.argtypes = [ctypes.c_int,
                                         ctypes.POINTER(ctypes.c_int)]
@@ -98,7 +98,8 @@ def load() -> ctypes.CDLL:
         lib.lfs_words_per_block.restype = ctypes.c_int
         lib.lfs_stream_sums_pre.argtypes = [ctypes.c_int, ctypes.c_int,
                                             ctypes.c_void_p, ctypes.c_int64,
-                                            ctypes.c_void_p, ctypes.c_void_p]
+                                            ctypes.c_void_p, ctypes.c_int,
+                                            ctypes.c_void_p]
         lib.lfs_stream_sums_pre.restype = ctypes.c_int
         lib.lfs_pre_wave_blocks.argtypes = [ctypes.c_int, ctypes.c_int,
                                             ctypes.POINTER(ctypes.c_int)]
@@ -112,11 +113,13 @@ def load() -> ctypes.CDLL:
         for name in ("lfs_words_block_words", "lfs_words_flush_bodies"):
             getattr(lib, name).argtypes = []
             getattr(lib, name).restype = ctypes.c_int
-        vp, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
+        vp, i64, i32, u32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int, ctypes.c_uint32
         for name, args in (("lfs_read_xor", [vp, i64, vp, vp]),
                            ("lfs_transpose_xor", [vp, i64, i32, vp, vp]),
                            ("lfs_transform_xor", [vp, i64, i32, vp, vp]),
-                           ("lfs_stream_sums_raw", [vp, i64, i32, vp, vp])):
+                           ("lfs_stream_sums_raw", [vp, i64, i32, vp, vp]),
+                           ("lfs_fold_xor", [vp, i64, i32, u32, vp, vp]),
+                           ("lfs_setop_count_cuda", [i32, vp, vp, i64, vp, vp])):
             getattr(lib, name).argtypes = args
             getattr(lib, name).restype = ctypes.c_int
         _lib = lib

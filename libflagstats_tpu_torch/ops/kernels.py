@@ -52,8 +52,9 @@ PRE_MODES = ("pre", "pre_report")
 #: and the three K7 stage probes
 PROBES = ("read_xor", "raw", "transpose_xor", "transform_xor")
 #: kernel launches per mode, counted where the kernel is launched and
-#: nowhere else ("words": K6, ops/words_kernels.py)
-LAUNCHES = {m: 0 for m in MODES + PRE_MODES + ("words",) + PROBES}
+#: nowhere else ("words": K6, ops/words_kernels.py; "fold_xor": K8,
+#: ops/probe_kernels.py; "setop": K9, ops/setalgebra.py)
+LAUNCHES = {m: 0 for m in MODES + PRE_MODES + ("words",) + PROBES + ("fold_xor", "setop")}
 
 #: packed plane-tile row orders: the flagstat transform never reads the
 #: planes of FLAG bits 12-15 (nor, in report mode, of bits 4 and 5), so
@@ -234,14 +235,28 @@ def check_cuda_words(x) -> bool:
     return False
 
 
-def stream_sums_cuda(x: torch.Tensor, mode: str = "flagstat") -> torch.Tensor:
+def _check_blocks(blocks) -> int:
+    """The launchers' grid argument: 0 (one wave at most) for None."""
+    if blocks is None:
+        return 0
+    if not isinstance(blocks, int) or blocks < 1:
+        raise ValueError(f"blocks must be an int >= 1, got {blocks!r}")
+    return blocks
+
+
+def stream_sums_cuda(x: torch.Tensor, mode: str = "flagstat",
+                     blocks: int | None = None) -> torch.Tensor:
     """Per-stream sums through the CUDA kernel -> (n_streams,) int64.
 
     ``x``: a contiguous uint16 (or int16 view) tensor. On a CUDA tensor
     this launches the kernel or raises; a CPU tensor takes the plain
     version. The kernel masks its own head and tail, so any 2-byte
-    aligned start (an odd-offset slice, say) is taken as it is."""
+    aligned start (an odd-offset slice, say) is taken as it is.
+    ``blocks`` is the most blocks the grid gets, the one geometry knob of
+    a kernel whose blocks stride over the input (tools/kernel_sweep.py
+    sweeps it); None gives one full wave (``wave_blocks``)."""
     _check_mode(mode)
+    blocks = _check_blocks(blocks)
     if check_cuda_words(x):
         return stream_sums_plain(x, mode)
     out = torch.zeros(N_STREAMS[mode], dtype=torch.int64, device=x.device)
@@ -253,16 +268,16 @@ def stream_sums_cuda(x: torch.Tensor, mode: str = "flagstat") -> torch.Tensor:
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.lfs_stream_sums(_MODE_ID[mode], x.data_ptr(), x.numel(),
-                                  out.data_ptr(), stream)
+                                  out.data_ptr(), blocks, stream)
     if err:
         raise RuntimeError(f"stream_sums kernel ({mode}) failed: cudaError {err}")
     LAUNCHES[mode] += 1
     return out
 
 
-def wave_words(mode: str = "flagstat", device=None) -> int:
-    """Words one full wave of the kernel's blocks covers on ``device``
-    (beyond it the grid-stride loop turns)."""
+def wave_blocks(mode: str = "flagstat", device=None) -> int:
+    """Blocks of the kernel resident at once on ``device``: one full
+    wave, the default grid's cap."""
     _check_mode(mode)
     from . import cuda_build
 
@@ -272,7 +287,15 @@ def wave_words(mode: str = "flagstat", device=None) -> int:
         err = lib.lfs_wave_blocks(_MODE_ID[mode], ctypes.byref(blocks))
     if err:
         raise RuntimeError(f"occupancy query failed: cudaError {err}")
-    return blocks.value * lib.lfs_words_per_block()
+    return blocks.value
+
+
+def wave_words(mode: str = "flagstat", device=None) -> int:
+    """Words one full wave of the kernel's blocks covers on ``device``
+    (beyond it the grid-stride loop turns)."""
+    from . import cuda_build
+
+    return wave_blocks(mode, device) * cuda_build.load().lfs_words_per_block()
 
 
 # ---- K2: the kernel over host-pretransposed plane tiles ----
@@ -328,14 +351,16 @@ def stream_sums_pre_plain(planes: torch.Tensor, report: bool = False,
 
 
 def stream_sums_pre_cuda(planes: torch.Tensor, report: bool = False,
-                         packed: bool = False) -> torch.Tensor:
+                         packed: bool = False, blocks: int | None = None) -> torch.Tensor:
     """Per-stream sums of plane tiles through K2 -> (n_streams,) int64.
 
     ``planes`` as for stream_sums_pre_plain; on a CUDA tensor it must be
     contiguous and 16-byte aligned, and this launches the kernel
     (ops/csrc/flagstat_pre_kernels.cu) or raises. A CPU tensor takes the
     plain version. No group count is padded: a CUDA block takes one
-    group per turn of its loop, and zero tiles count nothing."""
+    group per turn of its loop, and zero tiles count nothing. ``blocks``
+    as for stream_sums_cuda (one wave: ``pre_wave_groups``)."""
+    blocks = _check_blocks(blocks)
     planes32, rows = _check_planes(planes, report, packed)
     if planes.device.type == "cpu":
         return stream_sums_pre_plain(planes, report, packed)
@@ -356,7 +381,7 @@ def stream_sums_pre_cuda(planes: torch.Tensor, report: bool = False,
     with torch.cuda.device(planes.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.lfs_stream_sums_pre(_MODE_ID[mode], len(rows), planes32.data_ptr(),
-                                      groups, out.data_ptr(), stream)
+                                      groups, out.data_ptr(), blocks, stream)
     if err:
         raise RuntimeError(f"stream_sums_pre kernel ({mode}, {len(rows)} rows) "
                            f"failed: cudaError {err}")

@@ -137,6 +137,28 @@ def flagstat_framed_range_native(path, codec: int, block_start: int,
                                   byte_start=byte_start, byte_stop=byte_stop)
 
 
+#: the host library's set-operation ids (lfs_setop_count)
+SETOP_IDS = {"intersect": 0, "union": 1, "diff": 2, "popcnt": 3}
+
+
+def setop_count_native(a: np.ndarray, b: np.ndarray | None, op: str,
+                       threads: int = 0) -> int:
+    """Set-algebra population count via the native hardware-POPCNT
+    kernel (reference: STORM_intersect/union/diff_count + STORM_popcnt,
+    libalgebra.h:500-3398). ``a``/``b``: contiguous byte-viewable
+    arrays of equal byte size; ``b`` is None for the unary popcnt."""
+    lib = _lib()
+    out = np.zeros(1, dtype=np.uint64)
+    rc = lib.lfs_setop_count(
+        a.ctypes.data_as(ctypes.c_void_p),
+        None if b is None else b.ctypes.data_as(ctypes.c_void_p),
+        a.nbytes, SETOP_IDS[op], threads,
+        out.ctypes.data_as(ctypes.c_void_p))
+    if rc != 0:
+        raise RuntimeError(f"lfs_setop_count failed (rc={rc})")
+    return int(out[0])
+
+
 def pospopcnt_native(array: np.ndarray, out=None, threads: int = 0) -> np.ndarray:
     """Positional popcount via the native AVX2 kernel -> (16,) uint64
     (reference: STORM_pospopcnt_u16, libalgebra.h:3497)."""

@@ -1,19 +1,22 @@
-"""The measurement kernels: the read roofline (K4) and the three stage
-probes (K7). CUDA wrappers and plain versions.
+"""The measurement kernels: the read roofline (K4), the three stage
+probes (K7) and the plane-row fold (K8). CUDA wrappers and plain versions.
 
 Port of ``libflagstats_tpu.ops.pallas_kernels`` ``read_xor_pallas``
 (pallas_call ``:605``), ``transpose_xor_pallas`` (``:723``),
 ``transform_xor_pallas_pre`` (``:790``) and ``stream_sums_pallas_raw``
-(modes ``"flagstat_raw"``/``"flagstat_raw@N"``, through ``:403``). The
-benchmark harness (bench/harness.py) prices every kernel against K4's
-read rate; tools/stage_decomposition.py brackets the stages of K1 with
-K4 and the probes.
+(modes ``"flagstat_raw"``/``"flagstat_raw@N"``, through ``:403``), and of
+``make_fold.<locals>.fold`` of the JAX side's ``tools/packed_probe.py``
+(pallas_call ``:72``). The benchmark harness (bench/harness.py) prices
+every kernel against K4's read rate; tools/stage_decomposition.py
+brackets the stages of K1 with K4 and the probes; tools/packed_probe.py
+asks with K8 what the rows a kernel leaves unread cost.
 
-* ``read_xor_cuda``, ``transpose_xor_cuda``, ``transform_xor_pre_cuda``
-  and ``stream_sums_raw_cuda`` launch the hand-written sm_90a kernels
-  (ops/csrc/flagstat_probe_kernels.cu) on a CUDA tensor, count their
-  launches in ``kernels.LAUNCHES``, and take the plain version only for a
-  tensor on the CPU. A CUDA tensor a kernel does not take raises.
+* ``read_xor_cuda``, ``transpose_xor_cuda``, ``transform_xor_pre_cuda``,
+  ``stream_sums_raw_cuda`` and ``fold_xor_cuda`` launch the hand-written
+  sm_90a kernels (ops/csrc/flagstat_probe_kernels.cu) on a CUDA tensor,
+  count their launches in ``kernels.LAUNCHES``, and take the plain
+  version only for a tensor on the CPU. A CUDA tensor a kernel does not
+  take raises.
 * ``*_plain`` compute the same functions in torch, on CPU and CUDA
   tensors alike, by the rules of the port's other plain versions (int32
   lanes holding uint32 bits, masked ``>>``, SWAR popcount).
@@ -32,12 +35,14 @@ word, from which a caller prices them.
 """
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 
 from .. import flags as F
 from . import bitslice as B
-from .kernels import (GROUP_WORDS, LANE, LAUNCHES, REGS, SUB16, _check_planes,
+from .kernels import (GROUP_WORDS, LANE, LAUNCHES, REGS, SUB, SUB16, _check_planes,
                       _popcount32, _transpose32, check_cuda_words)
 from .torch_ops import as_words
 
@@ -279,7 +284,85 @@ def stream_sums_raw_cuda(planes: torch.Tensor, repeat: int = 1) -> torch.Tensor:
     return out
 
 
+# ---- K8: the plane-row fold ----
+
+#: row counts of the plane tiles the fold takes: every row, or the packed
+#: 24 of ``kernels.PACKED_ROWS_FULL``
+FOLD_TILE_ROWS = (32, 24)
+
+
+def _fold_rows(planes, rows) -> tuple[int, ...]:
+    """The chosen rows of (G, nrows, 8, 128) tiles, sorted; every row for
+    None. Raises for tiles or rows the fold does not take."""
+    if not isinstance(planes, torch.Tensor):
+        raise TypeError(f"expected a torch.Tensor, got {type(planes).__name__}")
+    if (planes.ndim != 4 or planes.shape[1] not in FOLD_TILE_ROWS
+            or tuple(planes.shape[2:]) != (SUB, LANE)):
+        raise ValueError(f"expected (G, 32 or 24, 8, 128) plane tiles, got {tuple(planes.shape)}")
+    if planes.dtype not in (torch.uint32, torch.int32):
+        raise ValueError(f"expected uint32 plane tiles or an int32 view, got {planes.dtype}")
+    return _chosen_rows(planes.shape[1], None if rows is None else tuple(rows))
+
+
+@functools.lru_cache(maxsize=64)
+def _chosen_rows(nrows: int, rows) -> tuple[int, ...]:
+    # cached: the wrapper's per-call host cost is in the timed region of
+    # the harness
+    chosen = tuple(range(nrows)) if rows is None else tuple(sorted(set(int(r) for r in rows)))
+    if chosen and not 0 <= chosen[0] <= chosen[-1] < nrows:
+        raise ValueError(f"rows must lie in [0, {nrows}), got {chosen}")
+    return chosen
+
+
+@functools.lru_cache(maxsize=64)
+def _row_mask(chosen: tuple) -> int:
+    return sum(1 << r for r in chosen)
+
+
+def fold_xor_plain(planes: torch.Tensor, rows=None) -> torch.Tensor:
+    """Xor of every uint32 of the rows ``rows`` (default: all) of
+    (G, 32 or 24, 8, 128) plane tiles -> (1,) int32."""
+    chosen = _fold_rows(planes, rows)
+    planes32 = planes.view(torch.int32)
+    d = torch.zeros(1, dtype=torch.int32, device=planes.device)
+    if not chosen:
+        return d
+    index = torch.tensor(chosen, device=planes.device)
+    for start in range(0, planes32.shape[0], PLAIN_CHUNK_GROUPS):
+        d = d ^ _xor_all(planes32[start:start + PLAIN_CHUNK_GROUPS].index_select(1, index))
+    return d
+
+
+def fold_xor_cuda(planes: torch.Tensor, rows=None) -> torch.Tensor:
+    """The fold (see fold_xor_plain) through the CUDA kernel, which never
+    addresses a row outside ``rows``; a CPU tensor takes the plain
+    version. On a CUDA tensor the tiles must be contiguous and 16-byte
+    aligned; no group and an empty row set launch nothing."""
+    chosen = _fold_rows(planes, rows)
+    if planes.device.type == "cpu":
+        return fold_xor_plain(planes, chosen)
+    if planes.device.type != "cuda":
+        raise ValueError(f"the kernel runs on CUDA tensors, got {planes.device}")
+    if not planes.is_contiguous():
+        raise ValueError("the kernel reads contiguous plane tiles")
+    if planes.data_ptr() % 16:
+        raise ValueError("the kernel needs 16-byte aligned plane tiles")
+    out = torch.zeros(1, dtype=torch.int32, device=planes.device)
+    if planes.shape[0] and chosen:
+        _launch("lfs_fold_xor", planes, planes.data_ptr(), planes.shape[0], planes.shape[1],
+                _row_mask(chosen), out.data_ptr())
+        LAUNCHES["fold_xor"] += 1
+    return out
+
+
 # ---- host references (numpy) ----
+
+def fold_xor_np(planes: np.ndarray, rows=None) -> int:
+    """K8's digest: the xor of every uint32 of the chosen rows (default:
+    all) of (G, nrows, 8, 128) uint32 plane tiles."""
+    part = planes if rows is None else planes[:, sorted(set(rows))]
+    return int(np.bitwise_xor.reduce(part.ravel())) if part.size else 0
+
 
 def read_xor_np(x: np.ndarray) -> int:
     """K4's digest: the xor of the words at index i with (i >> 7) & 1 == 0

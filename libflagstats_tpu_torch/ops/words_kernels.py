@@ -26,7 +26,7 @@ import ctypes
 import torch
 
 from .. import flags as F
-from .kernels import LAUNCHES, _csa, check_cuda_words
+from .kernels import LAUNCHES, _check_blocks, _csa, check_cuda_words
 from .torch_ops import _ONE16, _transform_words_packed, as_words, assemble_counters
 
 BITS = 15          # transformed bit 15 is always 0
@@ -124,11 +124,11 @@ def stream_sums_words_cuda(x: torch.Tensor, blocks: int | None = None
 
     ``x``: a contiguous uint16 (or int16 view) tensor. On a CUDA tensor
     this launches the kernel or raises; a CPU tensor takes the plain
-    version. Any 2-byte aligned start is taken as it is. ``blocks``
-    (tests only) caps the grid below its one wave, so one thread runs
-    many more bodies than FLUSH_BODIES."""
-    if blocks is not None and blocks < 1:
-        raise ValueError(f"blocks must be >= 1, got {blocks}")
+    version. Any 2-byte aligned start is taken as it is. ``blocks`` as
+    for ``kernels.stream_sums_cuda`` (one wave: ``words_wave_blocks``); a
+    grid far below one wave makes one thread run many more bodies than
+    FLUSH_BODIES."""
+    blocks = _check_blocks(blocks)
     if check_cuda_words(x):
         return stream_sums_words_plain(x)
     out = torch.zeros(2 * BITS, dtype=torch.int64, device=x.device)
@@ -139,16 +139,15 @@ def stream_sums_words_cuda(x: torch.Tensor, blocks: int | None = None
         with torch.cuda.device(x.device):
             stream = torch.cuda.current_stream().cuda_stream
             err = lib.lfs_stream_sums_words(x.data_ptr(), x.numel(), out.data_ptr(),
-                                            blocks or 0, stream)
+                                            blocks, stream)
         if err:
             raise RuntimeError(f"stream_sums_words kernel failed: cudaError {err}")
         LAUNCHES["words"] += 1
     return _pass_fail_to_streams(out)
 
 
-def words_wave_words(device=None) -> int:
-    """Words one full wave of K6's blocks covers on ``device`` (beyond
-    it the grid-stride loop turns)."""
+def words_wave_blocks(device=None) -> int:
+    """Blocks of K6 resident at once on ``device``: one full wave."""
     from . import cuda_build
 
     lib = cuda_build.load()
@@ -157,7 +156,15 @@ def words_wave_words(device=None) -> int:
         err = lib.lfs_words_wave_blocks(ctypes.byref(blocks))
     if err:
         raise RuntimeError(f"occupancy query failed: cudaError {err}")
-    return blocks.value * lib.lfs_words_block_words()
+    return blocks.value
+
+
+def words_wave_words(device=None) -> int:
+    """Words one full wave of K6's blocks covers on ``device`` (beyond
+    it the grid-stride loop turns)."""
+    from . import cuda_build
+
+    return words_wave_blocks(device) * cuda_build.load().lfs_words_block_words()
 
 
 def flagstat_cuda_words(x: torch.Tensor, n=None) -> torch.Tensor:

@@ -31,10 +31,16 @@ def test_roster_on_the_cpu(tmp_path):
     for row in rows:
         cols = row.split("\t")
         assert len(cols) == 6 and "MISMATCH" not in row and cols[1] == str(1 << 14)
-    float(rows[0].split("\t")[2])
-    vs = rows[0].split("\t")[5].rstrip("!")
-    assert vs == "n/a" or float(vs) > 0
-    assert rows[1].split("\t")[2] == "skipped:set algebra not ported"
+    # the set-algebra rows are timed like the torch row (the plain version
+    # on the CPU), priced at 2 and 4 bytes per word
+    for row, bytes_per_word in zip(rows, (2, 2, 4)):
+        cols = row.split("\t")
+        t_us, mwords, gbs = float(cols[2]), float(cols[3]), float(cols[4])
+        assert t_us > 0
+        assert mwords == pytest.approx((1 << 14) / t_us, rel=0.01, abs=0.51)
+        assert gbs == pytest.approx(bytes_per_word * (1 << 14) / t_us / 1e3, rel=0.01, abs=0.051)
+        vs = cols[5].rstrip("!")
+        assert vs == "n/a" or float(vs) >= 0
     footer = [ln for ln in lines if ln.startswith("[roofline")]
     assert len(footer) <= 1 and all(ln.split("\t")[0] in (
         "[roofline:read_sum]", "[roofline:read_xor_cuda]",
@@ -139,3 +145,18 @@ def test_scaling_sweep_on_the_cpu():
     res = multihost.scaling_sweep(n_words=1 << 12, devices=["cpu"] * 4, device_counts=[1, 4],
                                   iters=1, impl="torch")
     assert [r["devices"] for r in res] == [1, 4]
+
+
+def test_setop_rows_skip_an_odd_word_count_and_flag_a_mismatch(monkeypatch, tmp_path):
+    lines = kernels.run(n_words=(1 << 12) + 1, iters=1, cache_dir=str(tmp_path), device="cpu")
+    rows = _body_rows(lines)[1:]
+    assert [r.split("\t") for r in rows] == [
+        [name, str((1 << 12) + 1), "skipped:odd word count", "-", "-", "-"]
+        for name in kernels.SETOP_ROWS]
+    right = kernels.setop_count_cuda
+    monkeypatch.setattr(kernels, "setop_count_cuda",
+                        lambda a, b, op: right(a, b, op) + (op == "intersect"))
+    lines = kernels.run(n_words=1 << 12, iters=1, cache_dir=str(tmp_path), device="cpu")
+    rows = _body_rows(lines)[1:]
+    assert rows[0].startswith("setop_popcnt\t4096\t") and "MISMATCH" not in rows[0]
+    assert rows[1] == "setop_intersect\t4096\tMISMATCH"

@@ -24,6 +24,8 @@ from libflagstats_tpu_torch.ops import bitslice as tB
 from libflagstats_tpu_torch.ops import cuda_build
 from libflagstats_tpu_torch.ops import kernels as K
 from libflagstats_tpu_torch.parallel import flagstat_sharded
+from libflagstats_tpu_torch.tools import (crossover_sweep, kernel_sweep, packed_probe,
+                                          pipeline_balance)
 
 REPO = Path(__file__).resolve().parent.parent
 
@@ -108,6 +110,9 @@ def test_import_pulls_in_no_jax():
         "import libflagstats_tpu_torch.bench.refcache, libflagstats_tpu_torch.bench.kernels\n"
         "import libflagstats_tpu_torch.bench.instrumented, libflagstats_tpu_torch.cli\n"
         "import libflagstats_tpu_torch.__main__, libflagstats_tpu_torch.tools.stage_decomposition\n"
+        "import libflagstats_tpu_torch.ops.setalgebra, libflagstats_tpu_torch.tools.packed_probe\n"
+        "import libflagstats_tpu_torch.tools.kernel_sweep, libflagstats_tpu_torch.tools.crossover_sweep\n"
+        "import libflagstats_tpu_torch.tools.pipeline_balance\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m.split('.')[0] in ('jax', 'jaxlib', 'libflagstats_tpu'))\n"
         "assert not bad, bad\n"
@@ -134,11 +139,21 @@ def _no_cuda():
     lambda x: L.flagstats_u16(x, impl="cuda_words"),
     lambda x: flagstat_sharded(x, devices=["cuda"], impl="cuda_words"),
     lambda x: flagstat_sharded(x, devices=["cuda", "cuda"]),
+    lambda x: L.popcnt(x, impl="cuda"),
+    lambda x: L.intersect_count(x, x),
+    lambda x: L.union_count(x, x, device="cuda"),
+    lambda x: L.diff_count(torch.from_numpy(x), torch.from_numpy(x)),
+    lambda x: packed_probe.run(groups=1),
+    lambda x: kernel_sweep.run(n_words=x.size),
+    lambda x: crossover_sweep.run([x.size]),
+    lambda x: pipeline_balance.run(n_words=x.size),
 ], ids=["flagstat", "report", "device", "pospopcnt", "pospopcnt-device",
-        "get_function", "flagstats", "words", "sharded-words", "sharded-auto"])
+        "get_function", "flagstats", "words", "sharded-words", "sharded-auto",
+        "popcnt", "intersect", "union-device", "diff-tensors",
+        "packed_probe", "kernel_sweep", "crossover_sweep", "pipeline_balance"])
 def test_cuda_tiers_raise_without_a_device(call):
     _no_cuda()
-    x = joracle.generate_flags(3000, seed=1)
+    x = joracle.generate_flags(3000, seed=1)   # 6000 bytes: a bitmap too
     before = dict(K.LAUNCHES)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         call(x)

@@ -101,6 +101,23 @@ def test_compat_zstd_route_builds(monkeypatch, tmp_path):
     assert dst.raw == data
 
 
+@pytest.mark.parametrize("n_bytes", [0, 4, 7, 1000, 100_001 * 4 + 3])
+def test_setop_count_native_equals_jax(n_bytes):
+    """The host POPCNT counts, byte tails that are no whole word included."""
+    assert tN.SETOP_IDS == jN.SETOP_IDS
+    rng = np.random.default_rng(n_bytes)
+    a = rng.integers(0, 256, size=n_bytes, dtype=np.uint8)
+    b = rng.integers(0, 256, size=n_bytes, dtype=np.uint8)
+    ops = {"intersect": a & b, "union": a | b, "diff": a & ~b, "popcnt": a}
+    for op, combined in ops.items():
+        second = None if op == "popcnt" else b
+        want = int(np.bitwise_count(combined).sum(dtype=np.int64))
+        assert tN.setop_count_native(a, second, op, threads=2) == want
+        assert jN.setop_count_native(a, second, op) == want
+    with pytest.raises(KeyError):
+        tN.setop_count_native(a, b, "xor")
+
+
 def test_failed_build_returns_none_and_keeps_stderr(monkeypatch, tmp_path):
     bad = tmp_path / "broken.cpp"
     bad.write_text("this is not C++\n")

@@ -1,0 +1,281 @@
+"""The port's tuning tools on the CPU, each with device="cpu" at a small
+size: the rows they print, OK on good data, exit code 1 and MISMATCH /
+FAIL when a kernel wrapper is patched to return a wrong result, the
+one-line exit without a card; and the pieces they stand on: the
+``blocks`` argument of the kernel wrappers, ``harness.wall_time_min``
+and ``profiling.trace``."""
+import glob
+import json
+
+import numpy as np
+import pytest
+import torch
+
+import libflagstats_tpu_torch as L
+from libflagstats_tpu_torch.bench import harness, profiling, refcache
+from libflagstats_tpu_torch.io import codec as C
+from libflagstats_tpu_torch.io import stream as S
+from libflagstats_tpu_torch.ops import kernels as K
+from libflagstats_tpu_torch.ops import probe_kernels as P
+from libflagstats_tpu_torch.ops import words_kernels as W
+from libflagstats_tpu_torch.oracle import flagstat_numpy, generate_flags
+from libflagstats_tpu_torch.tools import (crossover_sweep, kernel_sweep, packed_probe,
+                                          pipeline_balance)
+
+TOOLS = (packed_probe, kernel_sweep, crossover_sweep, pipeline_balance)
+
+
+@pytest.fixture
+def quick(monkeypatch, tmp_path):
+    """One repetition count set, one run per point, one attempt."""
+    for mod in (packed_probe, kernel_sweep):
+        monkeypatch.setattr(mod, "KS", (1, 2, 3))
+    for mod in (packed_probe, kernel_sweep, crossover_sweep):
+        monkeypatch.setattr(mod, "FIT_ITERS", 1)
+        monkeypatch.setattr(mod, "FIT_ATTEMPTS", 1)
+    monkeypatch.setattr(crossover_sweep, "WALL_ITERS", 1)
+    monkeypatch.setattr(crossover_sweep, "_ks", lambda n: (1, 2, 3))
+    monkeypatch.setattr(kernel_sweep, "WAVES", (0.5, 1))
+    monkeypatch.setattr(refcache, "CACHE_DIR", str(tmp_path))
+
+
+# ---- packed_probe ----
+
+def test_packed_probe_on_the_cpu(quick, capsys):
+    out = packed_probe.run(groups=8, device="cpu")
+    assert capsys.readouterr().out.splitlines() == out["lines"]
+    assert out["ok"] and out["lines"][0] == packed_probe.HEADER
+    rows = [ln.split("\t") for ln in out["lines"][1:4]]
+    assert [r[0] for r in rows] == ["full32", "sub24", "pack24"] == list(out["times"])
+    assert all(len(r) == 8 and r[-1] == "OK" and float(r[1]) >= 0 for r in rows)
+    # each case is priced at the bytes of the rows it folds
+    ms = {r[0]: float(r[1]) for r in rows}
+    own = {r[0]: float(r[2]) for r in rows}
+    equiv = {r[0]: float(r[3]) for r in rows}
+    for name, share in (("full32", 1.0), ("sub24", 0.75), ("pack24", 0.75)):
+        assert own[name] == pytest.approx(share * equiv[name], rel=0.05, abs=0.11), (name, ms)
+    assert out["lines"][4].startswith("# pack24/full32 = ")
+    assert out["lines"][5].startswith("# sub24/full32  = ")
+
+
+def test_packed_probe_flags_a_wrong_fold(quick, monkeypatch, capsys):
+    right = P.fold_xor_cuda
+    monkeypatch.setattr(P, "fold_xor_cuda", lambda p, rows=None: right(p, rows) ^ (rows is None))
+    assert packed_probe.main(["--device", "cpu", "--groups", "2"]) == 1
+    rows = [ln.split("\t") for ln in capsys.readouterr().out.splitlines()[1:4]]
+    assert [r[-1] for r in rows] == ["MISMATCH", "OK", "MISMATCH"]
+
+
+# ---- kernel_sweep ----
+
+def test_kernel_sweep_on_the_cpu(quick, capsys):
+    out = kernel_sweep.run(n_words=2 * 65536, device="cpu")
+    assert capsys.readouterr().out.splitlines() == out["lines"]
+    assert out["ok"] and out["lines"][0].startswith("roofline (agreed): ")
+    rows = out["lines"][1:]
+    modes = ["report", "full", "pre_report", "pre_full", "pre_packed_report", "pre_packed_full",
+             "words"]
+    assert [r.split()[0] for r in rows] == [f"mode={m}" for m in modes for _ in (0, 1)]
+    assert all(r.endswith(", OK") and " ms, " in r and "roofline" in r for r in rows)
+    assert [r.split()[1] for r in rows[:2]] == ["blocks=4", "blocks=8"]
+    assert all(("words-equiv" in r) == ("packed" in r) for r in rows)
+    assert set(out["times"]) == {(m, w) for m in modes for w in (0.5, 1)}
+
+
+def test_kernel_sweep_exits_1_on_a_mismatch(quick, monkeypatch, capsys):
+    right = K.stream_sums_cuda
+    monkeypatch.setattr(K, "stream_sums_cuda",
+                        lambda x, mode="flagstat", blocks=None: right(x, mode, blocks) + (
+                            mode == "flagstat_report"))
+    assert kernel_sweep.main(["-n", "65536", "--device", "cpu"]) == 1
+    rows = capsys.readouterr().out.splitlines()[1:]
+    assert [r.endswith("MISMATCH") for r in rows] == [True, True] + [False] * 12
+    monkeypatch.setattr(K, "stream_sums_cuda", right)
+    assert kernel_sweep.main(["-n", "65536", "--device", "cpu"]) == 0
+
+
+def test_blocks_argument_of_the_wrappers():
+    x = torch.from_numpy(generate_flags(70_000, seed=3, full_range=True))
+    planes = torch.from_numpy(L.ops.bitslice.pretranspose_host(x.numpy()))
+    ref = K.stream_sums_cuda(x)
+    # a CPU tensor takes the plain version, whatever the grid
+    assert torch.equal(K.stream_sums_cuda(x, "flagstat", blocks=3), ref)
+    assert torch.equal(K.stream_sums_pre_cuda(planes, blocks=5), ref)
+    for bad in (0, -1, 2.0):
+        with pytest.raises(ValueError, match="blocks"):
+            K.stream_sums_cuda(x, blocks=bad)
+        with pytest.raises(ValueError, match="blocks"):
+            K.stream_sums_pre_cuda(planes, blocks=bad)
+        with pytest.raises(ValueError, match="blocks"):
+            W.stream_sums_words_cuda(x, blocks=bad)
+
+
+# ---- crossover_sweep ----
+
+@pytest.mark.parametrize("pospopcnt", [False, True], ids=["flagstat", "pospopcnt"])
+def test_crossover_sweep_on_the_cpu(quick, capsys, pospopcnt):
+    out = crossover_sweep.run([1024, 5000], pospopcnt=pospopcnt, device="cpu")
+    lines = capsys.readouterr().out.splitlines()
+    assert lines == out["lines"]
+    assert lines[0] == "# device=cpu" + (" mode=pospopcnt" if pospopcnt else "")
+    assert lines[1] == crossover_sweep.HEADER
+    table = [ln.split("\t") for ln in lines[2:4]]
+    assert [r[0] for r in table] == ["1024", "5000"] and all(len(r) == 7 for r in table)
+    for row, cols in zip(out["rows"], table):
+        assert all(v > 0 for v in row[1:5])                 # numpy, native, torch wall and kernel
+        assert row[5] != row[5] and row[6] != row[6]        # no card: the kernel's columns are nan
+        assert cols[5] == cols[6] == "nan"
+    tail = lines[4:]
+    assert len(tail) == 5 and all(ln.startswith("# suggested ") for ln in tail[:4])
+    assert all(("pospopcnt" in ln) == pospopcnt for ln in tail[:4])
+    assert len(out["suggested"]) == 4
+    assert all(v is None for k, v in out["suggested"].items() if k.startswith("CUDA_MIN"))
+    assert tail[4].startswith("# sizes where the native host count beats the device wall: [")
+
+
+def test_first_size_rules():
+    rows = [(1, 1.0, 0.1, 2.0, 2.0, float("nan"), float("nan")),
+            (2, 3.0, 0.1, 2.0, 2.0, 1.0, 1.0),
+            (3, 3.0, 2.0, 2.0, 2.0, 1.0, 3.0)]
+    first = crossover_sweep._first_size
+    assert first(rows, lambda r: r[3] < r[1]) == 2
+    assert first(rows, lambda r: r[5] == r[5] and r[5] < min(r[1], r[3])) == 2
+    assert first(rows, lambda r: r[6] == r[6] and r[6] < r[4]) == 2
+    assert first(rows, lambda r: r[1] > 5) is None
+
+
+# ---- pipeline_balance ----
+
+def test_pipeline_balance_on_the_cpu(capsys):
+    orig = S._chunk_sums
+    out = pipeline_balance.run(n_words=300_000, device="cpu")
+    lines = capsys.readouterr().out.splitlines()
+    assert S._chunk_sums is orig                              # the serial leg's swap is undone
+    assert out["ok"] and list(out["walls"]) == ["overlapped", "serial", "native"]
+    legs = [ln for ln in lines if ln.startswith("== ")]
+    assert [ln.split(":")[0] for ln in legs] == ["== overlapped", "== serial", "== native"]
+    assert all(ln.endswith("check=ok") for ln in legs)
+    assert any(ln.startswith("warm-up [torch]") for ln in lines)
+    assert any(ln.startswith("dispatch: ") for ln in lines)   # the SectionTimer tables
+    assert list(out["benefit"]) == ["overlapped"]
+    verdict = [ln for ln in lines if ln.startswith("overlap benefit [overlapped]: serial ")]
+    assert len(verdict) == 1 and ("real overlap" in verdict[0]) == (
+        out["benefit"]["overlapped"] > pipeline_balance.OVERLAP_MIN)
+
+
+def test_serial_leg_equals_overlapped_leg_equals_oracle(tmp_path):
+    x = generate_flags(200_001, seed=5, full_range=True)
+    path = tmp_path / "x.lz4"
+    C.write_framed(path, x, codec="lz4", level=1, block_bytes=20_000)
+    ref = flagstat_numpy(x)
+    timer = profiling.SectionTimer()
+    for serial in (False, True):
+        c, wall = pipeline_balance._run(path, "torch", timer, serial, "cpu")
+        np.testing.assert_array_equal(c, ref)
+        assert wall > 0
+    assert timer.counts["dispatch"] >= 2
+
+
+def test_pipeline_balance_exits_1_on_wrong_counters(monkeypatch, capsys):
+    right = S._chunk_sums
+
+    def wrong(impl, chunk, report):
+        c, f = right(impl, chunk, report)
+        return c + 1, f
+
+    monkeypatch.setattr(S, "_chunk_sums", wrong)
+    assert pipeline_balance.main(["--n-words", "70000", "--device", "cpu", "--skip-native"]) == 1
+    legs = [ln for ln in capsys.readouterr().out.splitlines() if ln.startswith("== ")]
+    assert len(legs) == 2 and all(ln.endswith("check=FAIL") for ln in legs)
+    assert S._chunk_sums is wrong                             # restored to what the run found
+
+
+# ---- without a card ----
+
+@pytest.mark.parametrize("tool", TOOLS, ids=[t.__name__.split(".")[-1] for t in TOOLS])
+def test_tools_exit_with_one_line_without_a_card(tool, capsys):
+    if torch.cuda.is_available():
+        pytest.skip("checks the no-CUDA-device behaviour")
+    before = dict(K.LAUNCHES)
+    assert tool.main([]) == 1
+    cap = capsys.readouterr()
+    assert cap.out == ""
+    err = cap.err.strip().splitlines()
+    assert len(err) == 1 and "no CUDA device" in err[0]
+    assert err[0].startswith(tool.__name__.split(".")[-1] + ": error: ")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        tool.run()
+    assert K.LAUNCHES == before
+
+
+# ---- the pieces ----
+
+def test_wall_time_min_salts_every_call():
+    x = torch.from_numpy(generate_flags(4096, seed=1, full_range=True))
+    seen = []
+
+    def fn(a):
+        seen.append(a.clone())
+        return a.sum()
+
+    t = harness.wall_time_min(fn, x, iters=3, warmup=2, device="cpu")
+    assert 0 < t < 1 and len(seen) == 5
+    assert all(a.dtype == x.dtype and a.shape == x.shape for a in seen)
+    assert all(not torch.equal(a.view(torch.int16), x.view(torch.int16)) for a in seen)
+    distinct = {a.view(torch.int16).numpy().tobytes() for a in seen}
+    assert len(distinct) == 5                                 # a fresh buffer each call
+    slow = harness.wall_time_min(lambda a: [a.sum() for _ in range(200)], x, iters=2,
+                                 warmup=1, device="cpu")
+    assert slow > t
+
+
+def test_wall_time_min_without_a_card_raises():
+    if torch.cuda.is_available():
+        pytest.skip("checks the no-CUDA-device behaviour")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        harness.wall_time_min(lambda a: a, np.zeros(4, np.uint16))
+
+
+def test_the_spin_before_a_timed_run_grows_with_its_calls(monkeypatch):
+    """A run of k chained calls spins the card long enough for the host
+    to queue all k (a wrapper costs the host 40-50 us a call): with a
+    fixed spin, kernels faster than that were timed at the host's rate."""
+    spins = []
+
+    class FakeEvent:
+        def __init__(self, enable_timing):
+            assert enable_timing
+
+        def record(self):
+            pass
+
+        def synchronize(self):
+            pass
+
+        def elapsed_time(self, other):
+            return 1.0
+
+    monkeypatch.setattr(torch.cuda, "Event", FakeEvent)
+    monkeypatch.setattr(torch.cuda, "_sleep", spins.append)
+    x = torch.zeros(8)
+    for k in (4, 64, 260):
+        assert harness._time_call(lambda a: a.sum(), x, k, torch.device("cuda")) == 1e-3
+    assert spins == [harness.SPIN_CYCLES + k * harness.SPIN_CYCLES_PER_CALL for k in (4, 64, 260)]
+    # at the H100's 1.98 GHz boost clock, at least 50 us of spin per call
+    assert harness.SPIN_CYCLES_PER_CALL / 1.98e9 >= 50e-6
+
+
+def test_trace_writes_a_chrome_trace_on_the_cpu(tmp_path):
+    logdir = tmp_path / "deep" / "trace"
+    with profiling.trace(logdir) as where:
+        assert where == str(logdir)
+        torch.arange(1000).sum()
+    files = glob.glob(str(logdir / "*.trace.json"))
+    assert len(files) == 1
+    with open(files[0]) as f:
+        events = json.load(f)["traceEvents"]
+    assert any("sum" in str(e.get("name", "")) for e in events)
+    with pytest.raises(ZeroDivisionError):                    # the file is written on an error too
+        with profiling.trace(logdir):
+            1 / 0
+    assert len(glob.glob(str(logdir / "*.trace.json"))) == 2
