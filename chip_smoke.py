@@ -5,6 +5,11 @@ Run from the repository root, with no arguments:
 
     python3 chip_smoke.py
 
+or, for a quicker look at some phases only (each phase makes what it
+needs that an earlier phase would have made; no kernel JSON line then):
+
+    python3 chip_smoke.py --phases 3c,5c
+
 It builds the CUDA kernels from ops/csrc/ (into build/torch_kernels/)
 and the native host library (into build/torch_host/), holds every
 kernel against its plain torch version and the host oracles at edge
@@ -32,16 +37,21 @@ drives the tuning tools at full width (packed_probe, kernel_sweep,
 crossover_sweep, pipeline_balance), the set-algebra functions on the
 NA12878 column seen as a bitmap, and one profiler trace; phase 3e holds
 the fold kernel (K8) and the set-algebra kernel (K9) against their plain
-versions and numpy, and phase 5e times them.
+versions and numpy, and phase 5e times them. Phase 3c holds the
+word-space kernel (K6) against its plain version, with grids forced far
+past its packed-half flush interval; phase 5c times it on three word
+distributions at 64Mi and on the NA12878 column, beside K1 and K4.
 """
 from __future__ import annotations
 
+import argparse
 import concurrent.futures as cf
 import contextlib
 import glob
 import io
 import json
 import os
+import re
 import statistics
 import struct
 import subprocess
@@ -56,7 +66,7 @@ import libflagstats_tpu_torch as L
 import libflagstats_tpu_torch.parallel.multihost as MH
 from libflagstats_tpu_torch import cli
 from libflagstats_tpu_torch import flags as F
-from libflagstats_tpu_torch.bench import profiling
+from libflagstats_tpu_torch.bench import instrumented, profiling
 from libflagstats_tpu_torch.bench.profiling import SectionTimer
 from libflagstats_tpu_torch.config import CONFIG
 from libflagstats_tpu_torch.datasets import na12878_report_values, synth_na12878
@@ -72,7 +82,6 @@ from libflagstats_tpu_torch.ops import setalgebra as SA
 from libflagstats_tpu_torch.ops import words_kernels as W
 from libflagstats_tpu_torch.ops.torch_ops import assemble_counters
 from libflagstats_tpu_torch.oracle import flagstat_numpy, generate_flags
-from libflagstats_tpu_torch.parallel import flagstat_sharded
 from libflagstats_tpu_torch.tools import (crossover_sweep, kernel_sweep, packed_probe,
                                           pipeline_balance, stage_decomposition)
 
@@ -111,6 +120,18 @@ PRE_LAYOUTS = (("full 32 rows", False, False), ("report 32 rows", True, False),
                ("full 24 rows", False, True), ("report 20 rows", True, True))
 REPORT_ZEROS = [1, 3, 4, 5, 17, 19, 20, 21]
 NA12878_SKIP = [F.FREVERSE_OFF, F.FMREVERSE_OFF, 16 + F.FREVERSE_OFF, 16 + F.FMREVERSE_OFF]
+#: the phases, in the order they run: 3-3e kernel checks, 4a (a-d) the
+#: in-memory entry points, 4e (e-f) streaming, 4g word space, 4h
+#: data-parallel, 4i measurement, 4j tools, 5-5e kernel times
+PHASES = ("3", "3b", "3c", "3d", "3e", "4a", "4e", "4g", "4h", "4i", "4j",
+          "5", "5b", "5c", "5d", "5e")
+#: K6's word distributions of phase 5c at 64Mi: full-range words (a
+#: lookup's bank is a word's low 5 bits: ~3-4-way conflicts), real flags
+#: below 4096, and one repeated flag (99, NA12878's most common; every
+#: lookup a broadcast)
+WORDS_DISTRIBUTIONS = (("full-range", lambda n: generate_flags(n, seed=11, full_range=True)),
+                       ("flags<4096", lambda n: generate_flags(n, seed=11, full_range=False)),
+                       ("one value", lambda n: np.full(n, 99, np.uint16)))
 
 
 def card_line() -> str:
@@ -251,7 +272,7 @@ def check_words_kernel(max_err: dict) -> None:
     small that one thread runs far past the packed-half flush interval."""
     lib = cuda_build.load()
     assert lib.lfs_words_flush_bodies() == W.FLUSH_BODIES
-    assert lib.lfs_words_block_words() == 256 * W.BODY_WORDS
+    assert lib.lfs_words_block_words() == 256 * W.TURN_WORDS
     wave = W.words_wave_words()
     sizes = [0, 1, 31, 32, 33, 65535, 65536, 65537, 2 * wave + 12345]
     kinds = ["flags<4096", "full16bit", "all 0xFFFF", "all 0x0FFF", "all zero"]
@@ -278,15 +299,19 @@ def check_words_kernel(max_err: dict) -> None:
             for offset, xd in (("aligned", buf[1:].clone()), ("odd-offset slice", buf[1:])):
                 check(xd, n, ref, (n, kind, offset))
                 cases += 1
-    # 0x0FFF words set fail-stratum bits in every sixteens word, so every
-    # body adds 16 to their packed fields: the worst case for the flush
+    # a repeated word fills the packed fields fastest: every lane sets the
+    # same bits of one stratum, so each of those fields gains 256 per peel,
+    # the most it can (0x0FFF: a QC-fail word, transformed bits 2, 8, 9, 10
+    # in the high fields; 0x0DFF: a QC-pass word, bits 2, 8, 10 in the low
+    # fields, whose wrap would carry into the fail fields)
     forced = [("full16bit", generate_flags(WORDS_64MI, seed=13, full_range=True), (1, 3)),
-              ("all 0x0FFF", np.full(4 * WORDS_64MI, 0x0FFF, np.uint16), (1,))]
+              ("all 0x0FFF", np.full(4 * WORDS_64MI, 0x0FFF, np.uint16), (1,)),
+              ("all 0x0DFF", np.full(4 * WORDS_64MI, 0x0DFF, np.uint16), (1,))]
     for kind, x, grids in forced:
         xd = torch.from_numpy(x).cuda()
         ref = flagstat_numpy(x).astype(np.int64)
         for blocks in grids:
-            bodies = -(-x.size // (blocks * lib.lfs_words_block_words()))
+            bodies = 2 * -(-x.size // (blocks * lib.lfs_words_block_words()))
             check(xd, x.size, ref, (kind, x.size, f"blocks={blocks}"), blocks)
             print(f"K6 forced grid of {blocks} block(s) on {x.size} {kind} words: "
                   f"{bodies} bodies per thread, {bodies / W.FLUSH_BODIES:.1f}x the "
@@ -432,11 +457,12 @@ def drive_main_path() -> dict:
     p = L.pospopcnt_u16(x)
     launched(seen, "pospopcnt")
     assert (p.astype(np.int64) == pospopcnt_np(x)).all()
+    assert (L.pospopcnt_u16(x, impl="native") == p).all()
     d = L.flagstats(x)
     launched(seen, "flagstat")
     assert d == L.counters_to_dict(ref, x.size)
-    print("main path (a): flagstats_u16, cuda_report, pospopcnt_u16, flagstats "
-          "on 64Mi full-range words = oracle")
+    print("main path (a): flagstats_u16, cuda_report, pospopcnt_u16 (and its native "
+          "impl), flagstats on 64Mi full-range words = oracle")
 
     # (c) out= accumulation over three blocks = one call
     acc = np.zeros(32, dtype=np.uint64)
@@ -664,7 +690,8 @@ def drive_parallel_path(na_words: np.ndarray, na_path: str, tmp: str, card: str)
                                ("cuda_words", False, "words"),
                                ("cuda", True, "flagstat_report")):
         t0 = time.perf_counter()
-        c = flagstat_sharded(na_words, devices=["cuda:0", "cuda:0"], impl=impl, report=report)
+        c = L.flagstat_sharded(na_words, devices=["cuda:0", "cuda:0"], impl=impl,
+                               report=report)
         wall = time.perf_counter() - t0
         launched(seen, mode)
         check_na12878(c, want, f"sharded {impl} report={report}", report)
@@ -741,11 +768,20 @@ def drive_measurement_path() -> dict:
         assert float(cols[5].rstrip("!")) <= 1.05, cols
     print(f"main path (i): kernels roster, {len(timed)} timed rows, no MISMATCH, every row "
           f"<= 1.05x the roofline ({kind}, {footer[0].split(chr(9))[4]} GB/s)")
-    rc, lines = captured(["instrumented", "-n", str(1 << 20)])
-    assert rc == 0 and all(line.endswith("\tok") for line in lines[1:]), lines
+    # at its default size the column (2 MiB) sits in the L2: the roofline
+    # is measured over ROOFLINE_MIN_BYTES instead, and every row is priced
+    note = io.StringIO()
+    with contextlib.redirect_stderr(note):
+        rc, lines = captured(["instrumented", "-n", str(1 << 20)])
+    print(f"    {note.getvalue().strip()}")
+    rows = [line.split("\t") for line in lines[1:]]
+    assert rc == 0 and all(r[-1] == "ok" and r[-2] != "n/a" for r in rows), lines
+    assert note.getvalue().endswith(f"over {instrumented.ROOFLINE_MIN_BYTES} bytes\n"), note
     rc, lines = captured(["inmemory"])
     assert rc == 0 and all(line.endswith("OK") for line in lines), lines
-    print("main path (i): instrumented -n 1048576 and inmemory: every row ok")
+    print(f"main path (i): instrumented -n 1048576 (roofline over "
+          f"{instrumented.ROOFLINE_MIN_BYTES} bytes, every row priced) and inmemory: "
+          f"every row ok")
     stages = stage_decomposition.run()
     for stage in stage_decomposition.STAGES:
         c = stages["compute"][stage]
@@ -790,9 +826,11 @@ def drive_tools_path(na_words: np.ndarray, tmp: str) -> None:
     rc, lines = captured([], pipeline_balance.main)
     legs = [ln for ln in lines if ln.startswith("== ")]
     assert rc == 0 and len(legs) == 5 and all(ln.endswith("check=ok") for ln in legs), lines
+    runs = [re.findall(r"\d+\.\d+s", ln.split("the fastest of ")[1].split("(")[0]) for ln in legs]
+    assert all(len(r) == pipeline_balance.RUNS for r in runs), legs   # every run printed
     assert sum(ln.startswith("overlap benefit") for ln in lines) == 2, lines
-    print(f"main path (j): pipeline_balance at {pipeline_balance.N_WORDS} words: 5 legs, "
-          f"every check=ok")
+    print(f"main path (j): pipeline_balance at {pipeline_balance.N_WORDS} words: 5 legs of "
+          f"{pipeline_balance.RUNS} runs each, every check=ok")
 
     # the column's 1,649,083,784 bytes as a bitmap, and a seeded second one
     a_host = na_words.view(np.uint32)
@@ -848,8 +886,8 @@ def median_ms(fn, runs: int, reps: int) -> float:
 
 
 def time_kernels(na_words: np.ndarray, card: str) -> dict:
-    """Phases 5 and 5c: K1's modes and K6 against their plain versions,
-    CUDA events, median of runs."""
+    """Phase 5: K1's modes against their plain versions, CUDA events,
+    median of runs."""
     times = {}
     x64 = torch.from_numpy(generate_flags(WORDS_64MI, seed=11, full_range=True)).cuda()
     na = torch.from_numpy(na_words).cuda()
@@ -870,14 +908,65 @@ def time_kernels(na_words: np.ndarray, card: str) -> dict:
                 print(f"[{card}] {label} {mode} {name}: {t:.4f} ms, "
                       f"{n / t / 1e6:.4g} Gwords/s, {2 * n / t / 1e6:.1f} GB/s read")
             print(f"{label} {mode} bound: {bound_ms(2 * n, K.N_STREAMS[mode]):.4f} ms")
+    return times
+
+
+def ptxas_usage(source: str) -> str | None:
+    """ptxas's "Used N registers, ... smem" line for the one kernel of
+    ``source`` in this process's build, or None (a cached build)."""
+    text = cuda_build.BUILD_LOG.split(os.path.basename(source) + ":", 1)
+    used = [line.split(":", 1)[1].strip() for line in text[-1].splitlines()
+            if "Used" in line and "registers" in line] if len(text) == 2 else []
+    return used[0] if used else None
+
+
+def time_words_kernel(na_words: np.ndarray, card: str) -> dict:
+    """Phase 5c: K6 beside K1 (the same count, bit-sliced), K4 (the read
+    roofline), its plain version and its bound (the words read once),
+    CUDA events, median of runs: at 64Mi on three word distributions
+    (the table lookup's bank conflicts differ) and on the NA12878 column;
+    and at one turn per block of a full wave, where the table's prologue
+    is the largest share. "alone" is the launch without the wrapper's
+    zero-fill and its two small operations after it."""
+    times = {}
+    lib = cuda_build.load()
+    out = torch.zeros(2 * W.BITS, dtype=torch.int64, device="cuda")
+
+    def alone(x):
+        stream = torch.cuda.current_stream().cuda_stream
+        assert lib.lfs_stream_sums_words(x.data_ptr(), x.numel(), out.data_ptr(), 0, stream) == 0
+        return median_ms(lambda: lib.lfs_stream_sums_words(x.data_ptr(), x.numel(),
+                                                           out.data_ptr(), 0, stream), 7, 10)
+
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    wave = W.words_wave_blocks()
+    print(f"[{card}] K6: {wave} blocks a wave = {wave / sms:g} per SM; ptxas: "
+          f"{ptxas_usage(WORDS_SOURCE)}")
+    shapes = [(f"64Mi {name}", make(WORDS_64MI)) for name, make in WORDS_DISTRIBUTIONS]
+    shapes.append(("NA12878", na_words))
+    for label, words in shapes:
+        x = torch.from_numpy(words).cuda()
+        n = x.numel()
         ms = median_ms(lambda: W.stream_sums_words_cuda(x), 7, 10)
-        plain_ms = median_ms(lambda: W.stream_sums_words_plain(x), 5, 1)
-        times[(label, "words")] = (ms, plain_ms)
-        for name, t in (("kernel", ms), ("plain", plain_ms)):
-            print(f"[{card}] {label} K6 words {name}: {t:.4f} ms, {n / t / 1e6:.4g} "
-                  f"Gwords/s, {2 * n / t / 1e6:.1f} GB/s read (K1 flagstat "
-                  f"{times[(label, 'flagstat')][0]:.4f} ms)")
-        print(f"{label} K6 words bound: {bound_ms(2 * n, 2 * W.BITS):.4f} ms")
+        alone_ms = alone(x)
+        k1_ms = median_ms(lambda: K.stream_sums_cuda(x, "flagstat"), 7, 10)
+        k4_ms = median_ms(lambda: P.read_xor_cuda(x), 7, 10)
+        plain_ms = median_ms(lambda: W.stream_sums_words_plain(x), 3, 1)
+        bound = bound_ms(2 * n, 2 * W.BITS)
+        times[label] = (ms, plain_ms)
+        print(f"[{card}] {label} {n} words K6: kernel {ms:.4f} ms ({2 * n / ms / 1e6:.1f} GB/s "
+              f"read; alone {alone_ms:.4f} ms), plain {plain_ms:.4f} ms, bound {bound:.4f} ms "
+              f"(bytes; kernel at {bound / ms:.3f} of it); K1 flagstat {k1_ms:.4f} ms, K4 "
+              f"read_xor {k4_ms:.4f} ms (K6 = {ms / k4_ms:.3f}x K4)")
+        del x
+    n = W.words_wave_words()
+    x = torch.from_numpy(generate_flags(n, seed=17, full_range=True)).cuda()
+    ms = median_ms(lambda: W.stream_sums_words_cuda(x), 7, 10)
+    alone_ms = alone(x)
+    k4_ms = median_ms(lambda: P.read_xor_cuda(x), 7, 10)
+    print(f"[{card}] one turn per block ({n} words, {wave} blocks): K6 {ms:.4f} ms (alone "
+          f"{alone_ms:.4f} ms), K4 {k4_ms:.4f} ms: K6's launch alone, the table's prologue "
+          f"included, costs {(alone_ms - k4_ms) * 1e3:.1f} us over K4's call")
     return times
 
 
@@ -1041,12 +1130,31 @@ def phase(name: str):
     print(f"[phase {name}: {time.perf_counter() - t0:.1f} s]", flush=True)
 
 
-def main() -> int:
+def parse_phases(argv=None) -> list[str]:
+    """The phases to run, in PHASES order (default: all). Exits 2 on a
+    name that is not a phase."""
+    ap = argparse.ArgumentParser(prog="chip_smoke.py", description=__doc__.split("\n")[0])
+    ap.add_argument("--phases", default=",".join(PHASES),
+                    help="comma list of phases to run (default: all): " + ",".join(PHASES))
+    chosen = [p.strip() for p in ap.parse_args(argv).phases.split(",") if p.strip()]
+    unknown = [p for p in chosen if p not in PHASES]
+    if unknown or not chosen:
+        ap.error(f"unknown phases {unknown}; choose from {','.join(PHASES)}")
+    return [p for p in PHASES if p in chosen]
+
+
+def zero_launches() -> None:
+    for mode in K.LAUNCHES:
+        K.LAUNCHES[mode] = 0
+
+
+def main(argv=None) -> int:
+    run = parse_phases(argv)
     if not torch.cuda.is_available():
         raise RuntimeError("chip_smoke needs a CUDA device; torch sees none")
     card = card_line()
     print(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}, "
-          f"{torch.cuda.get_device_name(0)}")
+          f"{torch.cuda.get_device_name(0)}; phases {','.join(run)}")
 
     def timed_host_build():
         t0 = time.perf_counter()
@@ -1067,71 +1175,99 @@ def main() -> int:
     check_host_library(host_seconds)
 
     max_err = dict.fromkeys(K.LAUNCHES, 0)
+    checks = {"3": check_kernels, "3b": check_pre_kernel, "3c": check_words_kernel,
+              "3d": check_probe_kernels, "3e": check_fold_and_setop}
     with phase("3-3e, kernels against plain versions"):
-        check_kernels(max_err)
-        check_pre_kernel(max_err)
-        check_words_kernel(max_err)
-        check_probe_kernels(max_err)
-        check_fold_and_setop(max_err)
+        for name, check in checks.items():
+            if name in run:
+                check(max_err)
 
-    for mode in K.LAUNCHES:
-        K.LAUNCHES[mode] = 0
-    with phase("4a-d, in-memory entry points"):
-        na_words = drive_main_path()
-    launches = dict(K.LAUNCHES)
-    print(f"main-path launches (phase 4 a-d): {launches}")
-    assert all(launches[m] > 0 for m in K.MODES), launches
+    na = {}
+
+    def na12878() -> np.ndarray:
+        """The NA12878 column phase 4a made, or made now for a later phase."""
+        if "words" not in na:
+            t0 = time.perf_counter()
+            na["words"] = synth_na12878(1)[0]
+            print(f"synth_na12878(1): {na['words'].size} words, shuffled, made on the "
+                  f"host in {time.perf_counter() - t0:.1f} s")
+        return na["words"]
+
+    launches = stream_launches = parallel_launches = measure_launches = tools_launches = None
+    if "4a" in run:
+        zero_launches()
+        with phase("4a-d, in-memory entry points"):
+            na["words"] = drive_main_path()
+        launches = dict(K.LAUNCHES)
+        print(f"main-path launches (phase 4 a-d): {launches}")
+        assert all(launches[m] > 0 for m in K.MODES), launches
 
     with tempfile.TemporaryDirectory() as tmp:
-        for mode in K.LAUNCHES:
-            K.LAUNCHES[mode] = 0
-        with phase("4e-f, streaming"):
-            na_path = drive_stream_path(na_words, card, tmp)
-        stream_launches = dict(K.LAUNCHES)
-        print(f"streaming-path launches (phase 4 e-f): {stream_launches}")
-        assert all(stream_launches[m] > 0 for m in K.PRE_MODES), stream_launches
+        na_path = None
+        if "4e" in run:
+            zero_launches()
+            with phase("4e-f, streaming"):
+                na_path = drive_stream_path(na12878(), card, tmp)
+            stream_launches = dict(K.LAUNCHES)
+            print(f"streaming-path launches (phase 4 e-f): {stream_launches}")
+            assert all(stream_launches[m] > 0 for m in K.PRE_MODES), stream_launches
 
-        for mode in K.LAUNCHES:
-            K.LAUNCHES[mode] = 0
-        drive_words_path(na_words)
-        print(f"word-space launches (phase 4g): {dict(K.LAUNCHES)}")
-        assert K.LAUNCHES["words"] > 0
+        if "4g" in run:
+            zero_launches()
+            drive_words_path(na12878())
+            print(f"word-space launches (phase 4g): {dict(K.LAUNCHES)}")
+            assert K.LAUNCHES["words"] > 0
 
-        for mode in K.LAUNCHES:
-            K.LAUNCHES[mode] = 0
-        with phase("4h, data-parallel"):
-            workers = drive_parallel_path(na_words, na_path, tmp, card)
-        parallel_launches = {m: K.LAUNCHES[m] + workers[m] for m in K.LAUNCHES}
-        print(f"data-parallel launches (phase 4h): this process {dict(K.LAUNCHES)}, "
-              f"with its workers' {parallel_launches}")
-        assert all(K.LAUNCHES[m] > 0 for m in ("flagstat", "flagstat_report", "pre",
-                                               "words")), K.LAUNCHES
+        if "4h" in run:
+            if na_path is None:
+                na_path = os.path.join(tmp, "na12878.lz4")
+                C.write_framed(na_path, na12878(), "lz4", level=1)
+            zero_launches()
+            with phase("4h, data-parallel"):
+                workers = drive_parallel_path(na12878(), na_path, tmp, card)
+            parallel_launches = {m: K.LAUNCHES[m] + workers[m] for m in K.LAUNCHES}
+            print(f"data-parallel launches (phase 4h): this process {dict(K.LAUNCHES)}, "
+                  f"with its workers' {parallel_launches}")
+            assert all(K.LAUNCHES[m] > 0 for m in ("flagstat", "flagstat_report", "pre",
+                                                   "words")), K.LAUNCHES
 
-    for mode in K.LAUNCHES:
-        K.LAUNCHES[mode] = 0
-    with phase("4i, measurement path"):
-        drive_measurement_path()
-    measure_launches = dict(K.LAUNCHES)
-    print(f"measurement-path launches (phase 4i): {measure_launches}")
-    # every kernel but the fold, which only the tools path launches
-    assert all(v > 0 for m, v in measure_launches.items() if m != "fold_xor"), measure_launches
+    if "4i" in run:
+        zero_launches()
+        with phase("4i, measurement path"):
+            drive_measurement_path()
+        measure_launches = dict(K.LAUNCHES)
+        print(f"measurement-path launches (phase 4i): {measure_launches}")
+        # every kernel but the fold, which only the tools path launches
+        assert all(v > 0 for m, v in measure_launches.items() if m != "fold_xor"), \
+            measure_launches
 
-    for mode in K.LAUNCHES:
-        K.LAUNCHES[mode] = 0
-    with tempfile.TemporaryDirectory() as tmp, phase("4j, tools path"):
-        drive_tools_path(na_words, tmp)
-    tools_launches = dict(K.LAUNCHES)
-    print(f"tools-path launches (phase 4j): {tools_launches}")
-    assert tools_launches["fold_xor"] > 0 and tools_launches["setop"] > 0, tools_launches
-    assert all(tools_launches[m] > 0 for m in K.MODES + K.PRE_MODES + ("words", "read_xor")), \
-        tools_launches
+    if "4j" in run:
+        zero_launches()
+        with tempfile.TemporaryDirectory() as tmp, phase("4j, tools path"):
+            drive_tools_path(na12878(), tmp)
+        tools_launches = dict(K.LAUNCHES)
+        print(f"tools-path launches (phase 4j): {tools_launches}")
+        assert tools_launches["fold_xor"] > 0 and tools_launches["setop"] > 0, tools_launches
+        assert all(tools_launches[m] > 0 for m in K.MODES + K.PRE_MODES + ("words", "read_xor")), \
+            tools_launches
 
+    timers = {"5": time_kernels, "5b": time_pre_kernel, "5c": time_words_kernel,
+              "5d": time_probe_kernels, "5e": time_fold_and_setop}
+    results = {}
     with phase("5-5e, kernel times"):
-        times = time_kernels(na_words, card)
-        pre_times = time_pre_kernel(na_words, card)
-        probe_times = time_probe_kernels(na_words, card)
-        tool_times = time_fold_and_setop(na_words, card)
+        for name, timer in timers.items():
+            if name in run:
+                results[name] = timer(na12878(), card)
     assert "jax" not in sys.modules and "libflagstats_tpu" not in sys.modules
+    device = {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
+              "count": torch.cuda.device_count()}
+    if len(run) < len(PHASES):
+        # the kernel line needs every phase's launches and times
+        print(card)  # as nvidia-smi --query-gpu=name,power.limit prints it
+        print(json.dumps({"ok": True, "phases": run, "device": device}))
+        return 0
+    times, pre_times, words_times, probe_times, tool_times = (
+        results[k] for k in ("5", "5b", "5c", "5d", "5e"))
 
     kernels = [{
         "name": f"stream_sums_kernel<{mode}>",
@@ -1168,11 +1304,12 @@ def main() -> int:
         "replaces": WORDS_REPLACES,
         "launches": parallel_launches["words"],
         "max_abs_err": max_err["words"],
-        "ms": times[("64Mi", "words")][0],
-        "plain_ms": times[("64Mi", "words")][1],
+        "ms": words_times["64Mi full-range"][0],
+        "plain_ms": words_times["64Mi full-range"][1],
         "bound_ms": bound_ms(2 * WORDS_64MI, 2 * W.BITS),
         "bound_by": "bytes",
         "library_ms": None,
+        "ptxas": ptxas_usage(WORDS_SOURCE),
     })
     # no single PyTorch call computes an xor fold or these probes
     kernels += [{
@@ -1208,9 +1345,7 @@ def main() -> int:
          "libflagstats_tpu/ops/setalgebra.py:29", ("64Mi", "popcnt")))]
     print(json.dumps({"kernels": kernels}))
     print(card)  # as nvidia-smi --query-gpu=name,power.limit prints it
-    print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
-        "count": torch.cuda.device_count()}}))
+    print(json.dumps({"ok": True, "device": device}))
     return 0
 
 

@@ -13,6 +13,8 @@ Public API:
   counters_to_report(c)    samtools flagstat report object
   flagstat_stream(path)    streaming flagstat of a framed LZ4/Zstd file
                            (io/stream.py)
+  flagstat_sharded(values) data-parallel flagstat over devices
+                           (parallel/sharded.py, imported at first call)
   popcnt / intersect_count / union_count / diff_count
                            set-algebra popcounts over bitmaps (libalgebra.h)
 """
@@ -44,3 +46,11 @@ def flagstats(values, impl: str | None = None, device=None) -> dict:
         raise ValueError(f"Values must be 1-D, got shape {values.shape}")
     counters = flagstats_u16(np.ascontiguousarray(values), impl=impl, device=device)
     return counters_to_dict(counters, len(values))
+
+
+def flagstat_sharded(values, **kwargs):
+    """Data-parallel flagstat over devices (see parallel.sharded); the
+    module loads at the first call, not with the package."""
+    from .parallel.sharded import flagstat_sharded as _fs
+
+    return _fs(values, **kwargs)

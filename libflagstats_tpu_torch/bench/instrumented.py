@@ -9,7 +9,10 @@ The port of ``libflagstats_tpu.bench.instrumented``:
   entry-point call (a host column in, counters on the host out: the copy
   to the card included);
 * the memory speed of light (":456-544"): the defended read roofline on
-  the card, the host memcpy on the CPU;
+  the card, over at least ``ROOFLINE_MIN_BYTES`` so that it is read from
+  device memory and not from the 50 MB L2, and the host memcpy over the
+  column's bytes on the CPU; a note on standard error names the bytes it
+  was taken over;
 * tab-separated rows (`-t`, ":310-319").
 
 The variants: ``numpy``, ``native`` (where g++ builds the host library)
@@ -19,6 +22,7 @@ and ``torch`` on the timing device, and on the card ``cuda``,
 """
 from __future__ import annotations
 
+import sys
 import time
 from dataclasses import dataclass
 
@@ -30,6 +34,15 @@ from ..oracle import flagstat_numpy, generate_flags
 from .harness import defended_roofline, timing_device
 
 HEADER = "variant\twords\tmin_us\tavg_us\tMwords/s\tGB/s\tvs_roofline\tcheck"
+#: the least bytes the card's read roofline is measured over: 5x the
+#: H100's 50 MB L2 (below ~50 MB its gates fail and the column drops)
+ROOFLINE_MIN_BYTES = 256 << 20
+
+
+def roofline_bytes(n: int) -> int:
+    """Bytes the card's read roofline is measured over for an ``n``-word
+    run: the column's bytes, or ROOFLINE_MIN_BYTES when they are fewer."""
+    return max(2 * n, ROOFLINE_MIN_BYTES)
 
 
 @dataclass
@@ -95,10 +108,14 @@ def run_all(n: int = 1 << 20, iters: int = 5, with_roofline: bool = True,
     roof = None
     if with_roofline:
         if dev.type == "cuda":
-            r = defended_roofline(2 * n, device=dev)
+            nbytes = roofline_bytes(n)
+            r = defended_roofline(nbytes, device=dev)
             roof = r if r == r else None
+            note = f"note: roofline: defended read on {dev}, over {nbytes} bytes"
         else:
             roof = host_memcpy_roofline(n)
+            note = f"note: roofline: host memcpy, over {2 * n} bytes"
+        print(note + ("" if roof else ", failed its gates"), file=sys.stderr)
 
     lines = [HEADER]
     for name in variants:

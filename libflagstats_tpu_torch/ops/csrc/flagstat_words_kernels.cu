@@ -1,57 +1,69 @@
 // Word-space flagstat for NVIDIA Hopper (sm_90a): K6.
 //
 // Replaces the TPU kernel libflagstats_tpu/ops/pallas_kernels.py
-// `_make_words_kernel` / `_run_words_kernel` (the pallas_call at :928),
-// reached through `stream_sums_words` and `flagstat_pallas_words`. It
-// computes what that kernel computes, with no bit transpose: for each
-// transformed bit k < 15, the number of 16-bit words whose transformed
-// word has bit k set, once over QC-pass words (P[k]) and once over
-// QC-fail words (F[k]). The output is int64[30], P[0..14] then
-// F[0..14]; the wrapper forms (C[k], F[k]) = (P[k] + F[k], F[k]).
-// Transformed bit 15 is always 0, so it is not counted.
+// `_make_words_kernel` / `_run_words_kernel` (:847-947, the pallas_call
+// at :928), reached through `stream_sums_words` and
+// `flagstat_pallas_words`. It computes what that kernel computes, with no
+// bit transpose: for each transformed bit k < 15, the number of 16-bit
+// words whose transformed word has bit k set, once over QC-pass words
+// (P[k]) and once over QC-fail words (F[k]). The output is int64[30],
+// P[0..14] then F[0..14]; the wrapper forms (C[k], F[k]) = (P[k] + F[k],
+// F[k]). Transformed bit 15 is always 0, so it is not counted.
 //
-// Algorithm (the TPU kernel's, per thread):
-// * Mask-select transform in word space: SWAR on the two 16-bit fields
-//   of a 32-bit lane (`_transform_words_packed`, :819-844), splitting
-//   each lane into its pass and fail words.
-// * Two Harley-Seal carry-save trees (pass and fail strata), v1/v2/v4/v8
-//   each, fed 16 lanes per body; each body's sixteens word is peeled bit
-//   by bit with shift+mask into packed 16-bit half accumulators, one
-//   uint32 per (stratum, bit) holding two per-field subcounts.
-// * At the end the v1..v8 residuals are peeled with weights 1, 2, 4, 8.
+// What bounds it on this card. The kernel reads 2 bytes per word once
+// (3.35 TB/s nominal on the H100 SXM). The TPU kernel's SWAR transform
+// (`_transform_words_packed`, :819-844) costs ~14 integer operations a
+// word after LOP3 fusion, its two trees ~2 and its bit-by-bit peel of
+// every sixteens word ~3: ~20 a word, which at the cc 9.0 rate of 64 per
+// clock per SM is twice the read's time (PERF.md). This design cuts the
+// issue to ~5 a word, so the read bounds it again:
+// * The transform is one table lookup. The transformed word depends on
+//   input bits 0-11 only (bits 12-15 are dropped; QC-fail is bit 9), so
+//   each block builds a 4096-entry uint32 table in shared memory (16 KiB)
+//   in its prologue, from the same SWAR `transform()` (no host table can
+//   drift from it): entry i is the transformed word of i in the low half
+//   when i is a QC-pass word, in the high half when it is a QC-fail word.
+//   A word then costs a mask, an address and one shared load.
+// * One carry-save tree over pass|fail lanes. A table entry is one 32-bit
+//   CSA lane holding one word's pass bits (low field) and fail bits (high
+//   field), so one HS-16 tree (v1, v2, v4, v8) counts both strata, and
+//   the packed half accumulators drop from 30 to 15 registers.
+// * A second carry-save level. Each turn's two sixteens words go into a
+//   second tree (w16, w32, w64, w128) spread over 8 turns: the carries
+//   climb one level more on every 2nd, 4th and 8th turn, and the 256s
+//   word is peeled into the packed halves once every 8 turns (16
+//   bodies). Every thread of a block runs the same turns, so these
+//   branches never diverge.
 //
-// Packed-half bound. A sixteens peel adds 16 to a field per body (weight
-// 16, as the TPU kernel's `peel(sixteens, base, 4)`), so a field holds
-// at most 16 * b after b bodies, and 16 * 4095 = 65,520 <= 0xFFFF. So
-// each thread flushes its packed halves into 32-bit tallies every
-// kFlushBodies = 4095 bodies (131,040 words), before any field can wrap.
-// The residual peel goes straight into the tallies. (The TPU kernel
-// bounds the same halves by chunking calls at _WORDS_MAX_STEPS = 1536
-// grid steps, :919-927; here no call needs chunking.) A thread's 32-bit
-// tallies count at most the words it reads, far below 2^32 for any call
-// within ops.dispatch.DEVICE_WORD_CAP.
+// Packed-half bound. A 256s peel adds 256 to a field per 16 bodies, so
+// after p peels a field holds at most 256 * p, and 256 * 255 = 65,280 <=
+// 0xFFFF < 256 * 256: the bound is tight at 255 peels (a stream in which
+// every word sets one transformed bit of one stratum reaches it). Each
+// thread flushes its packed halves into the block's 64-bit sums every
+// kFlushBodies = 255 * 16 = 4080 bodies (2040 turns, 65,280 words). At
+// the end at most 254 peels are unflushed, and the residuals v1..v8,
+// w16..w128 and the pending carries (weights 32, 64, 128) add at most 15
+// + 240 + 224 = 479 more: 254 * 256 + 479 = 65,503 <= 0xFFFF, so they
+// are peeled into the halves before the last flush. (The TPU kernel
+// bounds its halves by chunking calls at _WORDS_MAX_STEPS = 1536 grid
+// steps, :919-927; here no call needs chunking.)
 //
-// Bound on this card. The kernel reads 2 bytes per word once (3.35 TB/s
-// nominal on the H100 SXM). Its ALU work is ~17 integer operations per
-// word (transform ~12, CSA trees ~2, peels ~3), far more than K1's
-// bit-sliced ~2, so it may well be bound by the integer pipes and not by
-// the read; PERF.md holds its measured time beside K1's.
-//
-// Design, and why.
+// Layout and the rest of the design.
 // * No sequential grid: the TPU kernel carries v1..v8 in VMEM scratch
-//   across ordered grid steps. Here each thread carries its own trees
-//   and packed halves across the turns of a grid-stride loop (counting
-//   is order-free), and blocks meet in one 64-bit atomicAdd per stream
-//   (flagstat_common.cuh flush_counts).
+//   across ordered grid steps. Here each thread carries its trees and
+//   packed halves across the turns of a grid-stride loop (counting is
+//   order-free), and blocks meet in one 64-bit atomicAdd per stream.
 // * Loads: a block turn covers 8192 words; thread t takes the uint4
-//   vectors t, t + 256, t + 512, t + 768 of it (16 lanes = one HS-16
-//   body), so every warp load covers 512 contiguous bytes and each
+//   vectors t, t + 256, t + 512, t + 768 of it (32 lanes = two HS-16
+//   bodies), so every warp load covers 512 contiguous bytes and each
 //   thread has four 16-byte loads in flight.
 // * Ragged edges: the kernel addresses the 16-byte-aligned base below
-//   the tensor's first word and masks [skip, end) itself. A vector wholly
-//   inside takes the vector load; a vector cut by the head or the tail
+//   the tensor's first word and masks [skip, end) itself. A turn wholly
+//   inside takes the vector loads; a turn cut by the head or the tail
 //   loads word by word inside the range and zeros outside. Zero words
-//   count nothing, so the host pads nothing.
+//   look up entry 0, which is 0, so the host pads nothing.
+// * Bank conflicts: a lookup's bank is the word's low 5 bits. Distinct
+//   words of a warp in one bank serialise; equal words broadcast.
 // * `blocks` (tests only) caps the grid, so a test can give one thread
 //   far more than kFlushBodies bodies and check the flush on the card.
 #include <cuda_runtime.h>
@@ -63,18 +75,21 @@ namespace {
 
 constexpr int kThreads = 256;
 constexpr int kVecs = 4;                      // uint4 loads per thread per turn
-constexpr int kLanes = 4 * kVecs;             // 16 lanes: one HS-16 body
+constexpr int kLanes = 16;                    // lanes per HS-16 body
 constexpr int kTileVecs = kThreads * kVecs;   // vectors per block turn
 constexpr int kTileWords = kTileVecs * 8;     // 8192 words per block turn
 constexpr int kBits = 15;                     // transformed bits 0-14
 constexpr int kStreams = 2 * kBits;           // pass bits, then fail bits
-constexpr int kFlushBodies = 4095;            // see "Packed-half bound"
+constexpr int kTable = 4096;                  // entries: input bits 0-11
+constexpr int kFlushPeels = 255;              // see "Packed-half bound"
+constexpr int kFlushBodies = kFlushPeels * 16;
 constexpr uint32_t kOne = 0x00010001u;        // bit 0 of each 16-bit field
 constexpr uint32_t kKeepAlways = 0x0704u;     // flags.KEEP_ALWAYS
 constexpr int kQcfail = 9;                    // flags.FQCFAIL_OFF
 
 // _transform_words_packed: two FLAG words per lane -> (pass, fail)
-// transformed words. Every op stays within its 16-bit field.
+// transformed words. Every op stays within its 16-bit field. Runs only
+// in the prologue that builds the table.
 __device__ __forceinline__ void transform(uint32_t x, uint32_t& tp, uint32_t& tf) {
   x &= 0x0FFF0FFFu;  // drop input bits 12-15
   const uint32_t sec = (x >> 8) & kOne;
@@ -102,7 +117,7 @@ __device__ __forceinline__ uint32_t csa(uint32_t& v, uint32_t a, uint32_t b) {
 
 // One HS-16 body (pallas_kernels.py:887-903): 16 lanes into v1/v2/v4/v8;
 // returns the sixteens word.
-__device__ __forceinline__ uint32_t hs16(uint32_t (&v)[4], const uint32_t (&d)[kLanes]) {
+__device__ __forceinline__ uint32_t hs16(uint32_t (&v)[4], const uint32_t* d) {
   uint32_t twosA = csa(v[0], d[0], d[1]);
   uint32_t twosB = csa(v[0], d[2], d[3]);
   uint32_t foursA = csa(v[1], twosA, twosB);
@@ -120,19 +135,33 @@ __device__ __forceinline__ uint32_t hs16(uint32_t (&v)[4], const uint32_t (&d)[k
   return csa(v[3], eightsA, eightsB);
 }
 
-// Add 16 to field f of packed[base + k] for each field f of s with bit k
-// set (the TPU kernel's peel at weight 2^4).
-__device__ __forceinline__ void peel16(uint32_t s, uint32_t (&packed)[kStreams], int base) {
+// Add 2^log2w to field f of packed[k] for each field f of s with bit k set.
+__device__ __forceinline__ void peel(uint32_t s, int log2w, uint32_t (&packed)[kBits]) {
 #pragma unroll
-  for (int k = 0; k < kBits; ++k) packed[base + k] += ((s >> k) & kOne) << 4;
+  for (int k = 0; k < kBits; ++k) packed[k] += ((s >> k) & kOne) << log2w;
 }
 
-__device__ __forceinline__ void flush_packed(uint32_t (&packed)[kStreams],
-                                             uint32_t (&cnt)[kStreams]) {
+// Add every thread's packed halves into block_sum (pass bit k at k, fail
+// bit k at kBits + k) and zero them: a warp-shuffle sum, then one shared
+// 64-bit atomicAdd per stream per warp. Every thread of the block calls
+// it at the same turn (the turn count is the block's), so the shuffles
+// see full warps.
+__device__ __forceinline__ void flush_packed(uint32_t (&packed)[kBits],
+                                             unsigned long long* block_sum) {
+  const int lane = threadIdx.x & 31;
 #pragma unroll
-  for (int s = 0; s < kStreams; ++s) {
-    cnt[s] += (packed[s] & 0xFFFFu) + (packed[s] >> 16);
-    packed[s] = 0;
+  for (int k = 0; k < kBits; ++k) {
+    uint32_t lo = packed[k] & 0xFFFFu, hi = packed[k] >> 16;  // 32 * 0xFFFF < 2^32
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) {
+      lo += __shfl_down_sync(0xFFFFFFFFu, lo, off);
+      hi += __shfl_down_sync(0xFFFFFFFFu, hi, off);
+    }
+    if (lane == 0) {
+      if (lo) atomicAdd(&block_sum[k], (unsigned long long)lo);
+      if (hi) atomicAdd(&block_sum[kBits + k], (unsigned long long)hi);
+    }
+    packed[k] = 0;
   }
 }
 
@@ -150,49 +179,97 @@ __device__ __forceinline__ uint4 load_masked(const uint16_t* __restrict__ base, 
                     w[6] | (w[7] << 16));
 }
 
+// The table entries of the two words of a 32-bit lane: a byte offset
+// from input bits 0-11 of each half (a shift and a mask), then one LDS.
+__device__ __forceinline__ void lookup(const char* table, uint32_t x, uint32_t* d) {
+  d[0] = *reinterpret_cast<const uint32_t*>(table + ((x << 2) & 0x3FFCu));
+  d[1] = *reinterpret_cast<const uint32_t*>(table + ((x >> 14) & 0x3FFCu));
+}
+
+__device__ __forceinline__ void lookup8(const char* table, uint4 q, uint32_t* d) {
+  lookup(table, q.x, d);
+  lookup(table, q.y, d + 2);
+  lookup(table, q.z, d + 4);
+  lookup(table, q.w, d + 6);
+}
+
 __global__ void __launch_bounds__(kThreads)
     stream_sums_words_kernel(const uint16_t* __restrict__ base, int64_t skip, int64_t end,
                              int64_t tiles, unsigned long long* __restrict__ out) {
+  __shared__ uint2 table_pairs[kTable / 2];
   __shared__ unsigned long long block_sum[kStreams];
+  // prologue: entries 2p and 2p + 1 from one SWAR transform of the pair,
+  // 8 pairs a thread, each warp storing 256 contiguous bytes
+  for (int p = threadIdx.x; p < kTable / 2; p += kThreads) {
+    uint32_t tp, tf;
+    transform(uint32_t(2 * p) | (uint32_t(2 * p + 1) << 16), tp, tf);
+    table_pairs[p] = make_uint2((tp & 0xFFFFu) | (tf << 16), (tp >> 16) | (tf & 0xFFFF0000u));
+  }
   for (int s = threadIdx.x; s < kStreams; s += kThreads) block_sum[s] = 0;
+  __syncthreads();  // before any thread reads the table; no thread returns early
+  const char* table = reinterpret_cast<const char*>(table_pairs);
 
-  uint32_t cnt[kStreams], packed[kStreams];
+  uint32_t packed[kBits];
 #pragma unroll
-  for (int s = 0; s < kStreams; ++s) cnt[s] = packed[s] = 0;
-  uint32_t vp[4] = {0, 0, 0, 0}, vf[4] = {0, 0, 0, 0};
-  int bodies = 0;
+  for (int k = 0; k < kBits; ++k) packed[k] = 0;
+  uint32_t v[4] = {0, 0, 0, 0}, w[4] = {0, 0, 0, 0}, pend[3] = {0, 0, 0};
+  uint32_t turn = 0;
+  int peels = 0;
 
   const uint4* base4 = reinterpret_cast<const uint4*>(base);
-  for (int64_t tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
-    uint32_t tp[kLanes], tf[kLanes];
+  for (int64_t tile = blockIdx.x; tile < tiles; tile += gridDim.x, ++turn) {
+    const int64_t first = tile * kTileWords;
+    uint4 q[kVecs];
+    if (first >= skip && first + kTileWords <= end) {
 #pragma unroll
-    for (int i = 0; i < kVecs; ++i) {
-      const int64_t vec = tile * kTileVecs + i * kThreads + threadIdx.x;
-      const int64_t first = vec * 8;
-      const uint4 v = (first >= skip && first + 8 <= end) ? __ldg(base4 + vec)
-                                                          : load_masked(base, first, skip, end);
-      transform(v.x, tp[4 * i], tf[4 * i]);
-      transform(v.y, tp[4 * i + 1], tf[4 * i + 1]);
-      transform(v.z, tp[4 * i + 2], tf[4 * i + 2]);
-      transform(v.w, tp[4 * i + 3], tf[4 * i + 3]);
+      for (int i = 0; i < kVecs; ++i)
+        q[i] = __ldg(base4 + tile * kTileVecs + i * kThreads + threadIdx.x);
+    } else {
+#pragma unroll
+      for (int i = 0; i < kVecs; ++i)
+        q[i] = load_masked(base, (tile * kTileVecs + i * kThreads + threadIdx.x) * 8, skip, end);
     }
-    peel16(hs16(vp, tp), packed, 0);
-    peel16(hs16(vf, tf), packed, kBits);
-    if (++bodies == kFlushBodies) {
-      flush_packed(packed, cnt);
-      bodies = 0;
+    uint32_t d[2 * kLanes];
+#pragma unroll
+    for (int i = 0; i < kVecs; ++i) lookup8(table, q[i], d + 8 * i);
+    const uint32_t s0 = hs16(v, d);
+    const uint32_t s1 = hs16(v, d + kLanes);
+    // level 2: an HS-16 body over the sixteens words of 8 turns
+    const uint32_t c32 = csa(w[0], s0, s1);
+    if (turn & 1) {
+      const uint32_t c64 = csa(w[1], pend[0], c32);
+      if (turn & 2) {
+        const uint32_t c128 = csa(w[2], pend[1], c64);
+        if (turn & 4) {
+          peel(csa(w[3], pend[2], c128), 8, packed);
+          if (++peels == kFlushPeels) {
+            flush_packed(packed, block_sum);
+            peels = 0;
+          }
+        } else {
+          pend[2] = c128;
+        }
+      } else {
+        pend[1] = c64;
+      }
+    } else {
+      pend[0] = c32;
     }
   }
-  flush_packed(packed, cnt);
+  // residuals: the trees with their weights, and the carries still
+  // pending after `turn` turns (see "Packed-half bound")
 #pragma unroll
-  for (int w = 0; w < 4; ++w) {
-#pragma unroll
-    for (int k = 0; k < kBits; ++k) {
-      cnt[k] += (((vp[w] >> k) & 1u) + ((vp[w] >> (16 + k)) & 1u)) << w;
-      cnt[kBits + k] += (((vf[w] >> k) & 1u) + ((vf[w] >> (16 + k)) & 1u)) << w;
-    }
+  for (int j = 0; j < 4; ++j) {
+    peel(v[j], j, packed);
+    peel(w[j], 4 + j, packed);
   }
-  lfs::flush_counts<kStreams, kThreads>(cnt, block_sum, out);
+#pragma unroll
+  for (int j = 0; j < 3; ++j)
+    if (turn & (1u << j)) peel(pend[j], 5 + j, packed);
+  flush_packed(packed, block_sum);
+  __syncthreads();
+  for (int s = threadIdx.x; s < kStreams; s += kThreads)
+    if (block_sum[s]) atomicAdd(&out[s], block_sum[s]);
 }
 
 }  // namespace
@@ -233,7 +310,8 @@ int lfs_words_wave_blocks(int* blocks) {
 // Words one block covers per turn of its grid-stride loop.
 int lfs_words_block_words(void) { return kTileWords; }
 
-// Bodies (turns) between a thread's flushes of its packed halves.
+// HS-16 bodies (16 words each; a turn is two) between a thread's
+// flushes of its packed halves.
 int lfs_words_flush_bodies(void) { return kFlushBodies; }
 
 }  // extern "C"

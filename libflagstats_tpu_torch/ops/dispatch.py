@@ -48,11 +48,13 @@ FLAGSTAT_IMPLS = {
     "cuda_pre": "host packed bit transpose (native C++), then the "
                 "transform + popcount CUDA kernel over 24-row plane tiles "
                 "(sm_90a)",
-    "cuda_words": "word-space SWAR transform + two Harley-Seal trees CUDA "
-                  "kernel, no bit transpose (sm_90a)",
+    "cuda_words": "word-space CUDA kernel, no bit transpose: shared-memory "
+                  "transform table + one two-level Harley-Seal tree over "
+                  "pass|fail lanes (sm_90a)",
 }
 POSPOPCNT_IMPLS = {
     "numpy": "host per-bit count",
+    "native": "host AVX2 Harley-Seal kernel (native C++ library)",
     "torch": "packed-SWAR shift-mask-reduce in plain torch",
     "cuda": "bit-sliced register transpose + popcount CUDA kernel (sm_90a)",
 }
@@ -218,6 +220,8 @@ def pospopcnt_u16(array, impl: str | None = None, device=None) -> np.ndarray:
         x = _host_words(words).astype(np.uint32)
         return np.array([np.count_nonzero((x >> k) & 1) for k in range(F.N_BITS)],
                         dtype=np.uint64)
+    if impl == "native":
+        return native_host.pospopcnt_native(_host_words(words))
     fn = pospopcnt_u16_torch if impl == "torch" else pospopcnt_u16_cuda
     acc = np.zeros(F.N_BITS, dtype=np.uint64)
     for chunk in _device_chunks(words):

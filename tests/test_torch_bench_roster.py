@@ -13,6 +13,7 @@ import torch
 
 from libflagstats_tpu_torch import cli
 from libflagstats_tpu_torch.bench import instrumented, kernels, refcache
+from libflagstats_tpu_torch.oracle import flagstat_numpy
 from libflagstats_tpu_torch.parallel import multihost
 from libflagstats_tpu_torch.tools import stage_decomposition as SD
 
@@ -74,12 +75,44 @@ def test_roster_row_bytes():
     assert kernels._row_bytes("cuda_pre_packed_report", planes, 100) == 3 * 20 * 4096
 
 
-def test_instrumented_on_the_cpu():
+def test_instrumented_on_the_cpu(capsys):
     lines = instrumented.run_all(n=1 << 12, iters=1, device="cpu")
     assert lines[0] == instrumented.HEADER
+    assert capsys.readouterr().err == f"note: roofline: host memcpy, over {2 << 12} bytes\n"
     names = [ln.split("\t")[0] for ln in lines[1:]]
     assert names[0] == "numpy" and names[-1] == "torch"
     assert all(ln.endswith("\tok") and len(ln.split("\t")) == 8 for ln in lines[1:])
+    assert all(ln.split("\t")[6] != "n/a" for ln in lines[1:])   # the column is printed
+
+
+@pytest.mark.parametrize("n,want", [(1 << 20, 256 << 20), (0, 256 << 20), (128 << 20, 256 << 20),
+                                    ((128 << 20) + 1, (256 << 20) + 2), (256 << 20, 512 << 20)])
+def test_roofline_is_measured_beyond_the_l2(n, want):
+    """The card's read roofline of an n-word run: over the column's 2n
+    bytes, but never under 256 MiB (5x the H100's 50 MB L2): at the
+    subcommand's default -n 1048576 the 2 MiB column sits in the L2."""
+    assert instrumented.roofline_bytes(n) == want >= instrumented.ROOFLINE_MIN_BYTES
+
+
+def test_instrumented_prices_the_card_rows_at_the_floor_size(monkeypatch, capsys):
+    seen = []
+
+    def roof(n_bytes, device=None):
+        seen.append(n_bytes)
+        return 3.0e12
+
+    monkeypatch.setattr(instrumented, "defended_roofline", roof)
+    monkeypatch.setattr(instrumented, "timing_device", lambda d: torch.device("cuda"))
+    monkeypatch.setattr(instrumented, "get_function",
+                        lambda n, impl, device: flagstat_numpy)
+    monkeypatch.setattr(instrumented.native_host, "available", lambda: False)
+    lines = instrumented.run_all(n=1 << 10, iters=1)
+    assert seen == [256 << 20]
+    assert capsys.readouterr().err == (f"note: roofline: defended read on cuda, "
+                                       f"over {256 << 20} bytes\n")
+    rows = [ln.split("\t") for ln in lines[1:]]
+    assert [r[0] for r in rows] == ["numpy", "torch", "cuda", "cuda_pre", "cuda_words"]
+    assert all(r[6] != "n/a" and r[7] == "ok" for r in rows)
 
 
 def test_inmemory_and_instrumented_cli_on_the_cpu(capsys):

@@ -41,13 +41,24 @@ def test_flagstats_u16_equals_jax(impl, device, n, full_range):
     _check(got, want, impl)
 
 
-@pytest.mark.parametrize("impl,device", [("numpy", None), ("torch", None), ("cuda", "cpu")])
+@pytest.mark.parametrize("impl,device", [("numpy", None), ("torch", None), ("cuda", "cpu"),
+                                         ("native", None)])
 def test_pospopcnt_u16_equals_jax(impl, device, full_range):
     x = generate_flags(70_001, seed=62, full_range=full_range)
     want = J.pospopcnt_u16(x, impl="numpy")
     got = L.pospopcnt_u16(x, impl=impl, device=device)
     assert got.dtype == np.uint64
     np.testing.assert_array_equal(got, want)
+
+
+def test_pospopcnt_native_impl_equals_the_jax_native_impl():
+    """impl="native" is a pospopcnt tier of both packages (the host
+    library's AVX2 kernel), on numpy arrays and CPU tensors alike."""
+    x = generate_flags(100_003, seed=63, full_range=True)
+    want = J.pospopcnt_u16(x, impl="native")
+    np.testing.assert_array_equal(L.pospopcnt_u16(x, impl="native"), want)
+    np.testing.assert_array_equal(L.pospopcnt_u16(torch.from_numpy(x), impl="native"), want)
+    np.testing.assert_array_equal(L.pospopcnt_u16(x[:0], impl="native"), np.zeros(16))
 
 
 def test_flagstats_dict_equals_jax():
@@ -127,4 +138,4 @@ def test_auto_impl_is_host_without_a_device():
     assert not hasattr(CONFIG, "cuda_min")
     assert set(D.FLAGSTAT_IMPLS) == {"numpy", "native", "torch", "cuda",
                                      "cuda_report", "cuda_pre", "cuda_words"}
-    assert set(D.POSPOPCNT_IMPLS) == {"numpy", "torch", "cuda"}
+    assert set(D.POSPOPCNT_IMPLS) == {"numpy", "native", "torch", "cuda"}

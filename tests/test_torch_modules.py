@@ -112,7 +112,8 @@ def test_import_pulls_in_no_jax():
         "import libflagstats_tpu_torch.__main__, libflagstats_tpu_torch.tools.stage_decomposition\n"
         "import libflagstats_tpu_torch.ops.setalgebra, libflagstats_tpu_torch.tools.packed_probe\n"
         "import libflagstats_tpu_torch.tools.kernel_sweep, libflagstats_tpu_torch.tools.crossover_sweep\n"
-        "import libflagstats_tpu_torch.tools.pipeline_balance\n"
+        "import libflagstats_tpu_torch.tools.pipeline_balance, libflagstats_tpu_torch.tools.sass_count\n"
+        "import runpy; runpy.run_path('chip_smoke.py')  # its imports, no main()\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m.split('.')[0] in ('jax', 'jaxlib', 'libflagstats_tpu'))\n"
         "assert not bad, bad\n"
@@ -147,10 +148,12 @@ def _no_cuda():
     lambda x: kernel_sweep.run(n_words=x.size),
     lambda x: crossover_sweep.run([x.size]),
     lambda x: pipeline_balance.run(n_words=x.size),
+    lambda x: L.flagstat_sharded(x),
 ], ids=["flagstat", "report", "device", "pospopcnt", "pospopcnt-device",
         "get_function", "flagstats", "words", "sharded-words", "sharded-auto",
         "popcnt", "intersect", "union-device", "diff-tensors",
-        "packed_probe", "kernel_sweep", "crossover_sweep", "pipeline_balance"])
+        "packed_probe", "kernel_sweep", "crossover_sweep", "pipeline_balance",
+        "sharded-top-level"])
 def test_cuda_tiers_raise_without_a_device(call):
     _no_cuda()
     x = joracle.generate_flags(3000, seed=1)   # 6000 bytes: a bitmap too

@@ -2,6 +2,10 @@
 entries against the JAX package's flagstat_sharded on conftest's
 8-device CPU mesh and flagstat_numpy, on the same seeded inputs. The
 kernel impls on CPU devices run their plain versions. Exact."""
+import os
+import subprocess
+import sys
+
 import jax
 import numpy as np
 import pytest
@@ -13,11 +17,13 @@ from libflagstats_tpu.ops import pallas_kernels as PK
 from libflagstats_tpu.oracle import flagstat_numpy, generate_flags
 from libflagstats_tpu.parallel import sharded as jS
 
+import libflagstats_tpu_torch as L
 from libflagstats_tpu_torch.ops import dispatch as D
 from libflagstats_tpu_torch.ops import kernels as K
 from libflagstats_tpu_torch.parallel import sharded as S
 
 REPORT_ZEROS = [1, 3, 4, 5, 17, 19, 20, 21]
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
 @pytest.fixture(scope="module")
@@ -115,3 +121,24 @@ def test_shard_bounds(n, parts, impl):
     for (a, b), (c, _) in zip(bounds, bounds[1:]):
         assert a <= b == c and b % granule == 0
     assert max(b - a for a, b in bounds) <= -(-n // parts) + granule
+
+
+def test_flagstat_sharded_is_a_lazy_top_level_name():
+    """The package exports flagstat_sharded as the JAX package does, and
+    loads parallel/ only at its first call."""
+    code = ("import sys, numpy as np, libflagstats_tpu_torch as L\n"
+            "assert not any(m.startswith('libflagstats_tpu_torch.parallel') for m in sys.modules)\n"
+            "x = np.arange(1000, dtype=np.uint16)\n"
+            "c = L.flagstat_sharded(x, devices=['cpu', 'cpu'], impl='cuda')\n"
+            "assert 'libflagstats_tpu_torch.parallel.sharded' in sys.modules\n"
+            "print(c.tolist())")
+    r = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
+                       text=True, timeout=300)
+    assert r.returncode == 0, r.stderr
+    x = np.arange(1000, dtype=np.uint16)
+    assert eval(r.stdout.strip().splitlines()[-1]) == flagstat_numpy(x).tolist()
+    for impl in ("cuda", "cuda_words", "torch"):
+        y = generate_flags(30_001, seed=64, full_range=True)
+        np.testing.assert_array_equal(
+            L.flagstat_sharded(y, devices=["cpu"] * 3, impl=impl),
+            S.flagstat_sharded(y, devices=["cpu"] * 3, impl=impl))

@@ -20,7 +20,7 @@ from libflagstats_tpu_torch.ops import probe_kernels as P
 from libflagstats_tpu_torch.ops import words_kernels as W
 from libflagstats_tpu_torch.oracle import flagstat_numpy, generate_flags
 from libflagstats_tpu_torch.tools import (crossover_sweep, kernel_sweep, packed_probe,
-                                          pipeline_balance)
+                                          pipeline_balance, sass_count)
 
 TOOLS = (packed_probe, kernel_sweep, crossover_sweep, pipeline_balance)
 
@@ -163,6 +163,36 @@ def test_pipeline_balance_on_the_cpu(capsys):
         out["benefit"]["overlapped"] > pipeline_balance.OVERLAP_MIN)
 
 
+def test_pipeline_balance_prices_each_leg_at_its_fastest_run(monkeypatch, capsys):
+    """Each leg runs RUNS times, an impl's overlapped and serial runs
+    taking turns; every run is printed and checked, and the verdict's
+    ratio is taken between the legs' fastest runs, so one slow run of a
+    leg cannot flip it."""
+    walls = {False: iter([0.30, 0.10, 0.20, 0.11]), True: iter([0.40, 0.13, 0.50])}
+    order = []
+    real = pipeline_balance._run
+
+    def scripted(path, impl, timer, serial, device):
+        counters, _ = real(path, impl, timer, serial, device)
+        order.append(serial)
+        return counters, next(walls[serial])
+
+    monkeypatch.setattr(pipeline_balance, "_run", scripted)
+    assert pipeline_balance.RUNS == 3
+    out = pipeline_balance.run(n_words=20_000, skip_native=True, device="cpu")
+    lines = capsys.readouterr().out.splitlines()
+    # the untimed warm-up (an overlapped run) takes the first wall
+    assert out["runs"] == {"overlapped": [0.10, 0.20, 0.11], "serial": [0.40, 0.13, 0.50]}
+    assert out["walls"] == {"overlapped": 0.10, "serial": 0.13}
+    assert out["benefit"]["overlapped"] == pytest.approx(1.3)
+    legs = [ln for ln in lines if ln.startswith("== ")]
+    assert legs[0].startswith("== overlapped: wall 0.100s, the fastest of 0.100s 0.200s 0.110s")
+    assert legs[1].startswith("== serial: wall 0.130s, the fastest of 0.400s 0.130s 0.500s")
+    assert any("= 1.30x (real overlap)" in ln for ln in lines)
+    # the warm-up, then o, s, o, s, o, s
+    assert order == [False] + [False, True] * pipeline_balance.RUNS
+
+
 def test_serial_leg_equals_overlapped_leg_equals_oracle(tmp_path):
     x = generate_flags(200_001, seed=5, full_range=True)
     path = tmp_path / "x.lz4"
@@ -279,3 +309,94 @@ def test_trace_writes_a_chrome_trace_on_the_cpu(tmp_path):
         with profiling.trace(logdir):
             1 / 0
     assert len(glob.glob(str(logdir / "*.trace.json"))) == 2
+
+
+# ---- sass_count ----
+
+SASS = """
+        Function : _Z5otherv
+        /*0000*/                   EXIT ;
+        Function : _ZN12_GLOBAL__N_124stream_sums_words_kernelEPKtlllPy
+        .headerflags    @"EF_CUDA_SM90 EF_CUDA_VIRTUAL_SM(EF_CUDA_SM90)"
+        /*0000*/                   LDC R1, c[0x0][0x28] ;                 /* 0x00000a00ff017b82 */
+        /*0010*/                   S2R R0, SR_TID.X ;                     /* 0x0000000000007919 */
+.L_x_1:
+        /*0020*/                   LDG.E.128.CONSTANT R4, desc[UR4][R2.64] ;
+        /*0030*/                   LOP3.LUT R6, R4, 0x3ffc, RZ, 0xc0, !PT ;
+        /*0040*/                   LDS R7, [R6+UR5] ;
+        /*0050*/              @P0 BRA `(.L_x_2) ;
+        /*0060*/                   LDG.E.U16 R8, desc[UR4][R2.64] ;
+        /*0070*/                   IADD3 R8, R8, 0x1, RZ ;
+.L_x_2:
+        /*0080*/                   ISETP.NE.AND P1, PT, R8, RZ, PT ;
+        /*0090*/              @!P1 BRA `(.L_x_3) ;
+        /*00a0*/                   LOP3.LUT R9, R7, R9, R10, 0x96, !PT ;
+        /*00b0*/                   SHF.R.U32.HI R11, RZ, 0x1, R9 ;
+.L_x_3:
+        /*00c0*/                   IADD3 R12, R12, 0x1, RZ ;
+        /*00d0*/              @P2 BRA 0x20 ;
+        /*00e0*/                   EXIT ;
+"""
+
+
+def test_sass_count_finds_the_hot_loop_and_its_shortest_path():
+    res = sass_count.analyse(SASS)
+    assert res["loop"] == (0x20, 0xD0) and res["loop_insns"] == 12
+    # the head, the join after the first diamond, the join after the second
+    assert res["path_insns"] == 8
+    assert res["path"] == {"ldg": 1, "alu": 3, "lds": 1, "ctrl": 3}
+    assert res["per_word"]["alu"] == 3 / 32 and res["per_word"]["lds"] == 1 / 32
+    lines = sass_count.report(res)
+    assert lines == ["hot loop 0x0020-0x00d0: 12 instructions; shortest path 8: "
+                     "alu 3, lds 1, ldg 1, ctrl 3, other 0",
+                     "per word (32 a turn) on that path: alu 0.094, lds 0.031, ldg 0.031, "
+                     "ctrl 0.094, other 0.000"]
+
+
+def test_sass_count_follows_divergent_fallbacks_and_picks_the_loading_loop(monkeypatch, capsys):
+    """A BRA.DIV may fall through; a backward jump from out-of-line code
+    that spans more instructions but fewer loads is not the hot loop.
+    Through main(), with the build patched to return this text."""
+    text = """
+        Function : _Z24stream_sums_words_kernelv
+        /*0000*/                   S2R R0, SR_TID.X ;
+        /*0010*/                   LDG.E.128 R4, desc[UR4][R2.64] ;
+        /*0020*/                   LOP3.LUT R6, R4, 0x3ffc, RZ, 0xc0, !PT ;
+        /*0030*/              @P0 BRA 0x80 ;
+        /*0040*/                   BRA.DIV UR4, 0x100 ;
+        /*0050*/                   SHFL.DOWN PT, R8, R9, 0x10, 0x1f ;
+        /*0060*/                   IADD3 R8, R8, R9, RZ ;
+        /*0070*/                   ATOMS.ADD RZ, [R10], R8 ;
+        /*0080*/                   IADD3 R12, R12, 0x1, RZ ;
+        /*0090*/              @P2 BRA 0x10 ;
+        /*00a0*/                   EXIT ;
+        /*0100*/                   SHFL.DOWN PT, R8, R9, 0x10, 0x1f ;
+        /*0110*/                   BRA 0x0 ;
+"""
+    monkeypatch.setattr(sass_count, "disassemble",
+                        lambda source: (text, "ptxas info    : Used 9 registers\n"))
+    assert sass_count.main([]) == 0
+    out = capsys.readouterr().out.splitlines()
+    assert out[0].endswith("flagstat_words_kernels.cu: stream_sums_words_kernel")
+    assert out[1] == "  ptxas: ptxas info    : Used 9 registers"
+    assert out[2] == ("hot loop 0x0010-0x0090: 9 instructions; shortest path 5: "
+                      "alu 2, lds 0, ldg 1, ctrl 2, other 0")
+    assert len(out) == 4
+
+
+def test_sass_count_classes_and_errors(monkeypatch, capsys):
+    assert [sass_count.classify(op) for op in ("LOP3.LUT", "IMAD.MOV.U32", "LDS.U16", "LDG.E.128",
+                                               "BRA", "SHFL.DOWN", "UIADD3", "SEL")] == \
+        ["alu", "alu", "lds", "ldg", "ctrl", "other", "other", "alu"]
+    with pytest.raises(RuntimeError, match="0 functions"):
+        sass_count.analyse(SASS.replace("stream_sums_words_kernel", "other_kernel"))
+    with pytest.raises(RuntimeError, match="no loop"):
+        sass_count.analyse("Function : stream_sums_words_kernel\n"
+                           "        /*0000*/                   EXIT ;\n")
+
+    def no_nvcc():
+        raise RuntimeError("nvcc not found")
+
+    monkeypatch.setattr(sass_count.cuda_build, "_nvcc", no_nvcc)
+    assert sass_count.main([]) == 1                            # one line, no traceback
+    assert capsys.readouterr().err == "sass_count: error: nvcc not found\n"
