@@ -30,7 +30,8 @@ it and read just after: phase 4 (a-d) the in-memory entry points, phase
 4 (e, f) the streaming device path, phase 4g the word-space impl, phase
 4h the data-parallel path (its workers report their own counts), phase
 4i the measurement path (the `kernels`, `instrumented` and `inmemory`
-subcommands, the stage decomposition and the scaling sweep). Phase 3d
+subcommands, the stage decomposition and the scaling sweep), phase 4k
+the container path. Phase 3d
 holds the read roofline (K4) and the three stage probes (K7) against
 their plain versions and host references; phase 5d times them. Phase 4j
 drives the tuning tools at full width (packed_probe, kernel_sweep,
@@ -41,6 +42,13 @@ versions and numpy, and phase 5e times them. Phase 3c holds the
 word-space kernel (K6) against its plain version, with grids forced far
 past its packed-half flush interval; phase 5c times it on three word
 distributions at 64Mi and on the NA12878 column, beside K1 and K4.
+Phase 4k drives the container path: it writes a minimal-payload BAM of
+the NA12878 column's first 103,067,736 words, a realistic-payload BAM, a
+plain SAM and a BGZF SAM of 2^22 words with the port's writers (depth
+cut for run time only), counts each and the NA12878 LZ4 file through
+flagstat_file on the card (the native reader, then K1), by the fused
+host walk and, for the BAMs, by K2 and K6, all against the oracle, and
+runs the seven host subcommands of the CLI.
 """
 from __future__ import annotations
 
@@ -70,6 +78,7 @@ from libflagstats_tpu_torch.bench import instrumented, profiling
 from libflagstats_tpu_torch.bench.profiling import SectionTimer
 from libflagstats_tpu_torch.config import CONFIG
 from libflagstats_tpu_torch.datasets import na12878_report_values, synth_na12878
+from libflagstats_tpu_torch.io import bamio, samio
 from libflagstats_tpu_torch.io import codec as C
 from libflagstats_tpu_torch.io import native_lib
 from libflagstats_tpu_torch.io.stream import StreamCheckpoint
@@ -122,13 +131,21 @@ REPORT_ZEROS = [1, 3, 4, 5, 17, 19, 20, 21]
 NA12878_SKIP = [F.FREVERSE_OFF, F.FMREVERSE_OFF, 16 + F.FREVERSE_OFF, 16 + F.FMREVERSE_OFF]
 #: the phases, in the order they run: 3-3e kernel checks, 4a (a-d) the
 #: in-memory entry points, 4e (e-f) streaming, 4g word space, 4h
-#: data-parallel, 4i measurement, 4j tools, 5-5e kernel times
-PHASES = ("3", "3b", "3c", "3d", "3e", "4a", "4e", "4g", "4h", "4i", "4j",
+#: data-parallel, 4i measurement, 4j tools, 4k container files, 5-5e
+#: kernel times
+PHASES = ("3", "3b", "3c", "3d", "3e", "4a", "4e", "4g", "4h", "4i", "4j", "4k",
           "5", "5b", "5c", "5d", "5e")
 #: K6's word distributions of phase 5c at 64Mi: full-range words (a
 #: lookup's bank is a word's low 5 bits: ~3-4-way conflicts), real flags
 #: below 4096, and one repeated flag (99, NA12878's most common; every
 #: lookup a broadcast)
+#: phase 4k's container files, cut in depth for run time only: a
+#: minimal-payload BAM of the NA12878 column's first 1/8 (the slice
+#: pipeline_balance streams) and 2^22-word realistic BAM, plain SAM and
+#: BGZF SAM; BAM and BGZF members at deflate level 1
+CONTAINER_MIN_BAM_WORDS = 103_067_736
+CONTAINER_WORDS = 1 << 22
+CONTAINER_LEVEL = 1
 WORDS_DISTRIBUTIONS = (("full-range", lambda n: generate_flags(n, seed=11, full_range=True)),
                        ("flags<4096", lambda n: generate_flags(n, seed=11, full_range=False)),
                        ("one value", lambda n: np.full(n, 99, np.uint16)))
@@ -201,17 +218,21 @@ def check_kernels(max_err: dict) -> None:
               f"exactly (max_abs_err {max_err[mode]})")
 
 
-def check_host_library(build_seconds: float) -> None:
-    """Phase 2b: the native host library built, and its packed transpose
-    is byte-identical to the numpy spec."""
+def check_host_library(build_seconds: float, readers_seconds: float) -> None:
+    """Phase 2b: the native host library and the readers built, and the
+    packed transpose is byte-identical to the numpy spec."""
     if native_lib.load() is None:
         raise RuntimeError(f"the native host library did not build:\n{native_lib.BUILD_ERROR}")
+    if native_lib.load_readers() is None:
+        raise RuntimeError(f"the native readers did not build:\n{native_lib.READERS_BUILD_ERROR}")
     gxx = subprocess.run(["g++", "--version"], capture_output=True, text=True,
                          check=True, timeout=60).stdout.splitlines()[0]
     header = ("the system <zstd.h>" if native_lib.ZSTD_ROUTE == "system"
               else "libflagstats_tpu_torch/io/csrc/compat/zstd.h, -l:libzstd.so.1")
     print(f"host library built in {build_seconds:.2f} s by {gxx}; zstd: "
           f"{native_lib.ZSTD_ROUTE} ({header})")
+    print(f"readers built in {readers_seconds:.2f} s; zlib: the system <zlib.h>, -lz; "
+          f"inflate: {native_lib.DEFLATE_ROUTE}")
     sizes = (1, 65_537, 8 * GW - 4_321)
     for n in sizes:
         x = generate_flags(n, seed=n, full_range=True)
@@ -740,13 +761,13 @@ def drive_parallel_path(na_words: np.ndarray, na_path: str, tmp: str, card: str)
     return workers
 
 
-def captured(argv: list, main=cli.main) -> tuple[int, list]:
-    """main(argv) with its standard output kept and echoed."""
+def captured(argv: list, main=cli.main, echo: bool = True) -> tuple[int, list]:
+    """main(argv) with its standard output kept and (by default) echoed."""
     out = io.StringIO()
     with contextlib.redirect_stdout(out):
         rc = main(argv)
     lines = out.getvalue().splitlines()
-    for line in lines:
+    for line in lines if echo else ():
         print(f"    {line}")
     return rc, lines
 
@@ -864,6 +885,173 @@ def drive_tools_path(na_words: np.ndarray, tmp: str) -> None:
     assert "stream_sums_kernel" in text, "the trace does not name K1's kernel"
     print(f"main path (j): profiling.trace around flagstats_u16(64Mi words): "
           f"{os.path.getsize(files[0])} bytes of Chrome trace, names stream_sums_kernel")
+
+
+def oracle_counts(words: np.ndarray) -> np.ndarray:
+    """flagstat_numpy of ``words``, in 4Mi-word pieces on a thread pool
+    (the oracle is additive over pieces, and numpy releases the GIL)."""
+    step = 1 << 22
+    with cf.ThreadPoolExecutor(os.cpu_count() or 4) as pool:
+        parts = list(pool.map(lambda a: flagstat_numpy(words[a:a + step]),
+                              range(0, words.size, step)))
+    return np.sum(parts, axis=0, dtype=np.uint64)
+
+
+def write_bgzf(src: str, dst: str, level: int) -> None:
+    """The bytes of ``src`` as BGZF members of 60,000 bytes at ``level``,
+    deflated on a thread pool, then the EOF member."""
+    data = np.memmap(src, dtype=np.uint8, mode="r")
+    offs = range(0, data.size, 60_000)
+    with open(dst, "wb") as fh, cf.ThreadPoolExecutor(os.cpu_count() or 4) as pool:
+        for member in pool.map(lambda o: bamio._bgzf_member(data[o:o + 60_000].tobytes(),
+                                                            level=level), offs, chunksize=64):
+            fh.write(member)
+        fh.write(bamio.BGZF_EOF)
+
+
+def count_container(label: str, path: str, kind: str, words: np.ndarray, ref: np.ndarray,
+                    card: str, impls=(("native", None),)) -> None:
+    """Phase 4k on one file: its kind, its column read by the native
+    reader, and flagstat_file on the card (impl=None) and with each of
+    ``impls`` (name, launch counter or None) = ``ref`` in all 32 counters;
+    prints the file's host walls."""
+    from libflagstats_tpu_torch.io import read_flags_auto, sniff_format
+
+    assert sniff_format(path) == kind, (label, sniff_format(path))
+    routes = {"bam": bamio, "sam": samio}
+    t = {}
+    t0 = time.perf_counter()
+    col = read_flags_auto(path)
+    t["read"] = time.perf_counter() - t0
+    if kind in routes:
+        assert routes[kind].READ_ROUTE == "native", (label, routes[kind].READ_ROUTE)
+    assert np.array_equal(col, words), label
+    seen = dict(K.LAUNCHES)
+    t0 = time.perf_counter()
+    c = L.flagstats_u16(col)
+    t["count"] = time.perf_counter() - t0
+    launched(seen, "flagstat")
+    assert (c == ref).all(), (label, c, ref)
+    del col
+    t0 = time.perf_counter()
+    c = L.flagstat_file(path)
+    t["flagstat_file"] = time.perf_counter() - t0
+    launched(seen, "flagstat")
+    assert (c == ref).all(), (label, c, ref)
+    for impl, mode in impls:
+        t0 = time.perf_counter()
+        c = L.flagstat_file(path, impl=impl)
+        t[impl] = time.perf_counter() - t0
+        if mode:
+            launched(seen, mode)
+        assert (c == ref).all(), (label, impl, c, ref)
+    print(f"[{card}] 4k {label}: {os.path.getsize(path)} bytes, {words.size} words, kind "
+          f"{kind}; walls (s): " + ", ".join(f"{k} {v:.3f}" for k, v in t.items())
+          + f"; every count = the oracle in all 32 counters")
+
+
+def drive_container_path(na_words: np.ndarray, na_path: str, tmp: str, card: str) -> None:
+    """Phase 4k: the container path. Writes a minimal and a realistic
+    BAM, a plain and a BGZF SAM with the port's writers, counts each and
+    the NA12878 LZ4 file through flagstat_file on the card and by the
+    other impls, then drives the host subcommands of the CLI."""
+    ncpu = os.cpu_count() or 4
+    n_min, n = CONTAINER_MIN_BAM_WORDS, CONTAINER_WORDS
+    print(f"4k depth, cut for run time only: minimal BAM {n_min} words (1/8 of NA12878), "
+          f"realistic BAM, plain SAM and BGZF SAM {n} words each, BAM and BGZF at deflate "
+          f"level {CONTAINER_LEVEL}; the NA12878 LZ4 file whole; decompress d/s on the "
+          f"{n}-word LZ4 file that `compress` writes from the realistic BAM")
+    print(f"readers: zlib -lz, inflate {native_lib.DEFLATE_ROUTE}")
+    bam_impls = (("native", None), ("cuda_pre", "pre"), ("cuda_words", "words"))
+
+    def made(label, write):
+        t0 = time.perf_counter()
+        write()
+        print(f"[{card}] 4k {label}: written in {time.perf_counter() - t0:.3f} s")
+
+    words = na_words[:n_min]
+    path = os.path.join(tmp, "min.bam")
+    made("minimal BAM", lambda: bamio.write_bam(path, words, level=CONTAINER_LEVEL,
+                                                 threads=ncpu))
+    count_container("minimal BAM", path, "bam", words, oracle_counts(words), card, bam_impls)
+    os.remove(path)
+
+    words = na_words[:n]
+    ref = oracle_counts(words)
+    real_bam = os.path.join(tmp, "real.bam")
+    made("realistic BAM", lambda: bamio.write_bam(real_bam, words, level=CONTAINER_LEVEL,
+                                                   payload="realistic", threads=ncpu))
+    count_container("realistic BAM", real_bam, "bam", words, ref, card, bam_impls)
+
+    path = os.path.join(tmp, "plain.sam")
+    made("plain SAM", lambda: samio.write_sam(path, words))
+    count_container("plain SAM", path, "sam", words, ref, card)
+    os.remove(path)
+
+    path = os.path.join(tmp, "real.sam.gz")
+
+    def write_bgzf_sam():
+        text = os.path.join(tmp, "real.sam")
+        samio.write_sam(text, words, payload="realistic")
+        write_bgzf(text, path, CONTAINER_LEVEL)
+        os.remove(text)
+
+    made("BGZF SAM", write_bgzf_sam)
+    shards = max(1, min(8, ncpu // 2))
+    members = samio.bgzf_member_count(path)
+    assert members >= 16 * shards, (members, shards)   # enough for the split
+    count_container("BGZF SAM", path, "sam", words, ref, card)
+    split = samio._flagstat_bgzf_sam_parallel(path)
+    assert split is not None and (split == ref).all(), split
+    print(f"[{card}] 4k BGZF SAM: {members} members, the member-range split over "
+          f"{shards} ranges = the oracle")
+    os.remove(path)
+
+    if na_path is None:
+        na_path = os.path.join(tmp, "na12878.lz4")
+        made("NA12878 LZ4", lambda: C.write_framed(na_path, na_words, "lz4", level=1))
+    t0 = time.perf_counter()
+    na_ref = oracle_counts(na_words)
+    print(f"[{card}] 4k NA12878 LZ4: flagstat_numpy of {na_words.size} words in "
+          f"{time.perf_counter() - t0:.3f} s")
+    count_container("NA12878 LZ4", na_path, "framed-lz4", na_words, na_ref, card)
+    check_na12878(na_ref, na_ref, "NA12878 LZ4")   # its report is na12878_report_values(1)
+
+    # the host subcommands, as a user runs them
+    seen = dict(K.LAUNCHES)
+    for path, want in ((real_bam, ref), (na_path, na_ref)):
+        rc, lines = captured(["flagstat", path])
+        launched(seen, "flagstat")
+        assert rc == 0 and lines == L.counters_to_report(want).text().splitlines(), lines
+    lz = os.path.join(tmp, "real.lz4")
+    assert cli.main(["compress", real_bam, "-o", lz]) == 0
+    assert np.array_equal(C.read_framed(lz, "lz4"), words)
+    rc, d_lines = captured(["decompress", lz, "--mode", "d", "--stream", "--timers"])
+    launched(seen, "flagstat")
+    rc_s, s_lines = captured(["decompress", lz, "--mode", "s"], echo=False)
+    assert rc == rc_s == 0 and d_lines == s_lines == \
+        L.counters_to_report(ref).text().splitlines(), (d_lines, s_lines)
+    col = os.path.join(tmp, "real.flags.bin")
+    assert cli.main(["bam2flags", real_bam, "-o", col]) == 0
+    assert np.array_equal(np.fromfile(col, dtype="<u2"), words)
+    rc, text_lines = captured(["generate", str(n), "--seed", "5"], echo=False)
+    txt, gen, util = (os.path.join(tmp, name) for name in ("g.txt", "g.bin", "u.bin"))
+    with open(txt, "w") as f:
+        f.write("\n".join(text_lines) + "\n")
+    assert rc == 0 and cli.main(["generate", str(n), "--seed", "5", "--binary", gen]) == 0
+    assert cli.main(["utility", "--input", txt, "-o", util]) == 0
+    with open(gen, "rb") as f, open(util, "rb") as g:
+        assert f.read() == g.read()
+    assert np.array_equal(np.fromfile(gen, dtype="<u2"), generate_flags(n, seed=5))
+    rc, lines = captured(["codec-sweep", gen, "--lz4-levels", "1", "--zstd-levels", "1"])
+    launched(seen, "flagstat")
+    assert rc == 0 and [line.split("\t")[:2] for line in lines[1:]] == \
+        [["lz4", "fast_a1"], ["zstd", "c1"], ["raw", "-"]], lines
+    for name in (real_bam, lz, col, txt, gen, util):
+        os.remove(name)
+    print(f"main path (k): CLI flagstat on the realistic BAM and the NA12878 LZ4 file, "
+          f"compress from the BAM read back equal, decompress --mode d --stream = --mode s, "
+          f"bam2flags, generate --binary = generate | utility, codec-sweep: all as expected")
 
 
 def median_ms(fn, runs: int, reps: int) -> float:
@@ -1156,23 +1344,24 @@ def main(argv=None) -> int:
     print(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"{torch.cuda.get_device_name(0)}; phases {','.join(run)}")
 
-    def timed_host_build():
+    def timed(load):
         t0 = time.perf_counter()
-        native_lib.load()
+        load()
         return time.perf_counter() - t0
 
-    # the host library (g++) builds while nvcc builds the kernels
-    with cf.ThreadPoolExecutor(1) as pool:
-        host_build = pool.submit(timed_host_build)
+    # the host library and the readers (g++) build while nvcc builds the kernels
+    with cf.ThreadPoolExecutor(2) as pool:
+        host_build = pool.submit(timed, native_lib.load)
+        readers_build = pool.submit(timed, native_lib.load_readers)
         t0 = time.perf_counter()
         path = cuda_build.build()
         cuda_build.load()
         print(f"built {path.name} in {time.perf_counter() - t0:.2f} s")
-        host_seconds = host_build.result()
+        host_seconds, readers_seconds = host_build.result(), readers_build.result()
     for line in cuda_build.BUILD_LOG.splitlines():
         if line.endswith(".cu:") or "registers" in line or "spill" in line:
             print("  ptxas:", line.strip())
-    check_host_library(host_seconds)
+    check_host_library(host_seconds, readers_seconds)
 
     max_err = dict.fromkeys(K.LAUNCHES, 0)
     checks = {"3": check_kernels, "3b": check_pre_kernel, "3c": check_words_kernel,
@@ -1231,25 +1420,35 @@ def main(argv=None) -> int:
             assert all(K.LAUNCHES[m] > 0 for m in ("flagstat", "flagstat_report", "pre",
                                                    "words")), K.LAUNCHES
 
-    if "4i" in run:
-        zero_launches()
-        with phase("4i, measurement path"):
-            drive_measurement_path()
-        measure_launches = dict(K.LAUNCHES)
-        print(f"measurement-path launches (phase 4i): {measure_launches}")
-        # every kernel but the fold, which only the tools path launches
-        assert all(v > 0 for m, v in measure_launches.items() if m != "fold_xor"), \
-            measure_launches
+        if "4i" in run:
+            zero_launches()
+            with phase("4i, measurement path"):
+                drive_measurement_path()
+            measure_launches = dict(K.LAUNCHES)
+            print(f"measurement-path launches (phase 4i): {measure_launches}")
+            # every kernel but the fold, which only the tools path launches
+            assert all(v > 0 for m, v in measure_launches.items() if m != "fold_xor"), \
+                measure_launches
 
-    if "4j" in run:
-        zero_launches()
-        with tempfile.TemporaryDirectory() as tmp, phase("4j, tools path"):
-            drive_tools_path(na12878(), tmp)
-        tools_launches = dict(K.LAUNCHES)
-        print(f"tools-path launches (phase 4j): {tools_launches}")
-        assert tools_launches["fold_xor"] > 0 and tools_launches["setop"] > 0, tools_launches
-        assert all(tools_launches[m] > 0 for m in K.MODES + K.PRE_MODES + ("words", "read_xor")), \
-            tools_launches
+        if "4j" in run:
+            zero_launches()
+            with tempfile.TemporaryDirectory() as tools_tmp, phase("4j, tools path"):
+                drive_tools_path(na12878(), tools_tmp)
+            tools_launches = dict(K.LAUNCHES)
+            print(f"tools-path launches (phase 4j): {tools_launches}")
+            assert tools_launches["fold_xor"] > 0 and tools_launches["setop"] > 0, tools_launches
+            assert all(tools_launches[m] > 0
+                       for m in K.MODES + K.PRE_MODES + ("words", "read_xor")), tools_launches
+
+        if "4k" in run:
+            na_words = na12878()
+            zero_launches()
+            with phase("4k, container path"):
+                drive_container_path(na_words, na_path, tmp, card)
+            container_launches = dict(K.LAUNCHES)
+            print(f"container-path launches (phase 4k): {container_launches}")
+            assert all(container_launches[m] > 0 for m in ("flagstat", "pre", "words")), \
+                container_launches
 
     timers = {"5": time_kernels, "5b": time_pre_kernel, "5c": time_words_kernel,
               "5d": time_probe_kernels, "5e": time_fold_and_setop}

@@ -13,6 +13,8 @@ Public API:
   counters_to_report(c)    samtools flagstat report object
   flagstat_stream(path)    streaming flagstat of a framed LZ4/Zstd file
                            (io/stream.py)
+  flagstat_file(path)      flagstat of any container: .bam, .sam[.gz],
+                           framed .lz4/.zst, raw binary column
   flagstat_sharded(values) data-parallel flagstat over devices
                            (parallel/sharded.py, imported at first call)
   popcnt / intersect_count / union_count / diff_count
@@ -54,3 +56,41 @@ def flagstat_sharded(values, **kwargs):
     from .parallel.sharded import flagstat_sharded as _fs
 
     return _fs(values, **kwargs)
+
+
+def flagstat_file(path, threads: int = 0, impl: str | None = None, device=None):
+    """32-counter vector straight from any supported container — the
+    `samtools flagstat <file>` workload with no samtools in the loop
+    (format sniffed by io.sniff_format: .bam, .sam[.gz], framed
+    .lz4/.zst, raw binary column; .cram raises NotImplementedError
+    until the port has a CRAM reader).
+
+    It counts on the card unless asked otherwise, like every entry point
+    of the port (the JAX package's default for BAM and BGZF-SAM is the
+    fused host walk+count): BAM and SAM read the column with the native
+    readers and count it with ``impl`` on ``device`` (io/bamio.py,
+    io/samio.py; ``impl="native"`` names the fused host walk+count);
+    framed files stream through ``flagstat_stream``, or, for an impl
+    the stream has not (``"numpy"``, ``"cuda_report"``,
+    ``"cuda_words"``), decode the column and count it; a raw column
+    counts through ``flagstats_u16``. With no card and neither
+    ``device`` nor a host ``impl``, it raises."""
+    from .io import CRAM_PENDING, read_flags_auto, sniff_format
+    from .io.stream import DEVICE_IMPLS
+
+    kind = sniff_format(path)
+    if kind == "bam":
+        from .io.bamio import flagstat_bam
+
+        return flagstat_bam(path, threads=threads, impl=impl, device=device)
+    if kind == "sam":
+        from .io.samio import flagstat_sam
+
+        return flagstat_sam(path, threads=threads, impl=impl, device=device)
+    if kind == "cram":
+        raise NotImplementedError(CRAM_PENDING.format(path=path))
+    if kind.startswith("framed-") and impl in (None, "native", *DEVICE_IMPLS):
+        return flagstat_stream(path, codec=kind.removeprefix("framed-"), impl=impl,
+                               threads=threads, device=device)
+    return flagstats_u16(read_flags_auto(path, threads=threads, kind=kind),
+                         impl=impl, device=device)

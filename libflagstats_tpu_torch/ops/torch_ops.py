@@ -13,6 +13,8 @@ every subtraction stays inside int32.
 """
 from __future__ import annotations
 
+import warnings
+
 import numpy as np
 import torch
 
@@ -29,7 +31,14 @@ def as_words(x) -> torch.Tensor:
     if isinstance(x, np.ndarray):
         if x.dtype != np.uint16:
             raise ValueError(f"expected uint16, got {x.dtype}")
-        x = torch.from_numpy(np.ascontiguousarray(x).view(np.int16))
+        x = np.ascontiguousarray(x).view(np.int16)
+        if x.flags.writeable:
+            x = torch.from_numpy(x)
+        else:
+            with warnings.catch_warnings():
+                # a read-only column (a file's mapping) is only ever read
+                warnings.filterwarnings("ignore", "The given NumPy array is not writable")
+                x = torch.from_numpy(x)
     if x.dtype == torch.uint16:
         x = x.view(torch.int16)
     if x.dtype != torch.int16:

@@ -113,6 +113,10 @@ def test_import_pulls_in_no_jax():
         "import libflagstats_tpu_torch.ops.setalgebra, libflagstats_tpu_torch.tools.packed_probe\n"
         "import libflagstats_tpu_torch.tools.kernel_sweep, libflagstats_tpu_torch.tools.crossover_sweep\n"
         "import libflagstats_tpu_torch.tools.pipeline_balance, libflagstats_tpu_torch.tools.sass_count\n"
+        "import libflagstats_tpu_torch.io.samio, libflagstats_tpu_torch.io.bamio\n"
+        "from libflagstats_tpu_torch import flagstat_file, cli\n"
+        "from libflagstats_tpu_torch.io import sniff_format, read_flags_auto, native_lib\n"
+        "assert native_lib.load_readers() is not None, native_lib.READERS_BUILD_ERROR\n"
         "import runpy; runpy.run_path('chip_smoke.py')  # its imports, no main()\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m.split('.')[0] in ('jax', 'jaxlib', 'libflagstats_tpu'))\n"
