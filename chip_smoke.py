@@ -31,7 +31,7 @@ it and read just after: phase 4 (a-d) the in-memory entry points, phase
 4h the data-parallel path (its workers report their own counts), phase
 4i the measurement path (the `kernels`, `instrumented` and `inmemory`
 subcommands, the stage decomposition and the scaling sweep), phase 4k
-the container path. Phase 3d
+the container path, phase 4l CRAM, the container legs and na12878_run. Phase 3d
 holds the read roofline (K4) and the three stage probes (K7) against
 their plain versions and host references; phase 5d times them. Phase 4j
 drives the tuning tools at full width (packed_probe, kernel_sweep,
@@ -48,7 +48,15 @@ plain SAM and a BGZF SAM of 2^22 words with the port's writers (depth
 cut for run time only), counts each and the NA12878 LZ4 file through
 flagstat_file on the card (the native reader, then K1), by the fused
 host walk and, for the BAMs, by K2 and K6, all against the oracle, and
-runs the seven host subcommands of the CLI.
+runs the seven host subcommands of the CLI. Phase 4l drives the rest of
+the container path: it writes the same 1/8 of the column as a GZIP CRAM
+and 2^22 words as a rANS CRAM with the port's writer (depth cut for run
+time only), counts each through flagstat_file on the card (K1), by the
+fused host walker, K2 and K6 against the oracle, sums the rANS file's
+container ranges, runs the three container legs of multihost (BAM,
+BGZF SAM, CRAM) over two gloo worker processes, and runs na12878_run at
+1/8 scale through the CRAM container and the framed stream. The run
+prints its own seconds before the result lines.
 """
 from __future__ import annotations
 
@@ -78,7 +86,7 @@ from libflagstats_tpu_torch.bench import instrumented, profiling
 from libflagstats_tpu_torch.bench.profiling import SectionTimer
 from libflagstats_tpu_torch.config import CONFIG
 from libflagstats_tpu_torch.datasets import na12878_report_values, synth_na12878
-from libflagstats_tpu_torch.io import bamio, samio
+from libflagstats_tpu_torch.io import bamio, cramio, samio
 from libflagstats_tpu_torch.io import codec as C
 from libflagstats_tpu_torch.io import native_lib
 from libflagstats_tpu_torch.io.stream import StreamCheckpoint
@@ -91,8 +99,8 @@ from libflagstats_tpu_torch.ops import setalgebra as SA
 from libflagstats_tpu_torch.ops import words_kernels as W
 from libflagstats_tpu_torch.ops.torch_ops import assemble_counters
 from libflagstats_tpu_torch.oracle import flagstat_numpy, generate_flags
-from libflagstats_tpu_torch.tools import (crossover_sweep, kernel_sweep, packed_probe,
-                                          pipeline_balance, stage_decomposition)
+from libflagstats_tpu_torch.tools import (crossover_sweep, kernel_sweep, na12878_run,
+                                          packed_probe, pipeline_balance, stage_decomposition)
 
 WORDS_64MI = 64 << 20
 GW = K.GROUP_WORDS
@@ -131,9 +139,9 @@ REPORT_ZEROS = [1, 3, 4, 5, 17, 19, 20, 21]
 NA12878_SKIP = [F.FREVERSE_OFF, F.FMREVERSE_OFF, 16 + F.FREVERSE_OFF, 16 + F.FMREVERSE_OFF]
 #: the phases, in the order they run: 3-3e kernel checks, 4a (a-d) the
 #: in-memory entry points, 4e (e-f) streaming, 4g word space, 4h
-#: data-parallel, 4i measurement, 4j tools, 4k container files, 5-5e
-#: kernel times
-PHASES = ("3", "3b", "3c", "3d", "3e", "4a", "4e", "4g", "4h", "4i", "4j", "4k",
+#: data-parallel, 4i measurement, 4j tools, 4k container files, 4l CRAM
+#: files, the container legs and na12878_run, 5-5e kernel times
+PHASES = ("3", "3b", "3c", "3d", "3e", "4a", "4e", "4g", "4h", "4i", "4j", "4k", "4l",
           "5", "5b", "5c", "5d", "5e")
 #: K6's word distributions of phase 5c at 64Mi: full-range words (a
 #: lookup's bank is a word's low 5 bits: ~3-4-way conflicts), real flags
@@ -910,15 +918,15 @@ def write_bgzf(src: str, dst: str, level: int) -> None:
 
 
 def count_container(label: str, path: str, kind: str, words: np.ndarray, ref: np.ndarray,
-                    card: str, impls=(("native", None),)) -> None:
-    """Phase 4k on one file: its kind, its column read by the native
-    reader, and flagstat_file on the card (impl=None) and with each of
-    ``impls`` (name, launch counter or None) = ``ref`` in all 32 counters;
-    prints the file's host walls."""
+                    card: str, impls=(("native", None),), tag: str = "4k") -> dict:
+    """Phase 4k or 4l on one file: its kind, its column read by the
+    native reader, and flagstat_file on the card (impl=None) and with
+    each of ``impls`` (name, launch counter or None) = ``ref`` in all 32
+    counters; prints the file's host walls and returns them."""
     from libflagstats_tpu_torch.io import read_flags_auto, sniff_format
 
     assert sniff_format(path) == kind, (label, sniff_format(path))
-    routes = {"bam": bamio, "sam": samio}
+    routes = {"bam": bamio, "sam": samio, "cram": cramio}
     t = {}
     t0 = time.perf_counter()
     col = read_flags_auto(path)
@@ -945,9 +953,23 @@ def count_container(label: str, path: str, kind: str, words: np.ndarray, ref: np
         if mode:
             launched(seen, mode)
         assert (c == ref).all(), (label, impl, c, ref)
-    print(f"[{card}] 4k {label}: {os.path.getsize(path)} bytes, {words.size} words, kind "
+    print(f"[{card}] {tag} {label}: {os.path.getsize(path)} bytes, {words.size} words, kind "
           f"{kind}; walls (s): " + ", ".join(f"{k} {v:.3f}" for k, v in t.items())
           + f"; every count = the oracle in all 32 counters")
+    return t
+
+
+def write_realistic_bam(path: str, words: np.ndarray) -> None:
+    bamio.write_bam(path, words, level=CONTAINER_LEVEL, payload="realistic",
+                    threads=os.cpu_count() or 4)
+
+
+def write_bgzf_sam(path: str, words: np.ndarray) -> None:
+    """A realistic-payload SAM of ``words`` as BGZF members."""
+    text = path.removesuffix(".gz")
+    samio.write_sam(text, words, payload="realistic")
+    write_bgzf(text, path, CONTAINER_LEVEL)
+    os.remove(text)
 
 
 def drive_container_path(na_words: np.ndarray, na_path: str, tmp: str, card: str) -> None:
@@ -979,8 +1001,7 @@ def drive_container_path(na_words: np.ndarray, na_path: str, tmp: str, card: str
     words = na_words[:n]
     ref = oracle_counts(words)
     real_bam = os.path.join(tmp, "real.bam")
-    made("realistic BAM", lambda: bamio.write_bam(real_bam, words, level=CONTAINER_LEVEL,
-                                                   payload="realistic", threads=ncpu))
+    made("realistic BAM", lambda: write_realistic_bam(real_bam, words))
     count_container("realistic BAM", real_bam, "bam", words, ref, card, bam_impls)
 
     path = os.path.join(tmp, "plain.sam")
@@ -989,14 +1010,7 @@ def drive_container_path(na_words: np.ndarray, na_path: str, tmp: str, card: str
     os.remove(path)
 
     path = os.path.join(tmp, "real.sam.gz")
-
-    def write_bgzf_sam():
-        text = os.path.join(tmp, "real.sam")
-        samio.write_sam(text, words, payload="realistic")
-        write_bgzf(text, path, CONTAINER_LEVEL)
-        os.remove(text)
-
-    made("BGZF SAM", write_bgzf_sam)
+    made("BGZF SAM", lambda: write_bgzf_sam(path, words))
     shards = max(1, min(8, ncpu // 2))
     members = samio.bgzf_member_count(path)
     assert members >= 16 * shards, (members, shards)   # enough for the split
@@ -1005,7 +1019,6 @@ def drive_container_path(na_words: np.ndarray, na_path: str, tmp: str, card: str
     assert split is not None and (split == ref).all(), split
     print(f"[{card}] 4k BGZF SAM: {members} members, the member-range split over "
           f"{shards} ranges = the oracle")
-    os.remove(path)
 
     if na_path is None:
         na_path = os.path.join(tmp, "na12878.lz4")
@@ -1047,11 +1060,125 @@ def drive_container_path(na_words: np.ndarray, na_path: str, tmp: str, card: str
     launched(seen, "flagstat")
     assert rc == 0 and [line.split("\t")[:2] for line in lines[1:]] == \
         [["lz4", "fast_a1"], ["zstd", "c1"], ["raw", "-"]], lines
-    for name in (real_bam, lz, col, txt, gen, util):
+    for name in (lz, col, txt, gen, util):   # phase 4l's legs reuse the BAM and BGZF SAM
         os.remove(name)
     print(f"main path (k): CLI flagstat on the realistic BAM and the NA12878 LZ4 file, "
           f"compress from the BAM read back equal, decompress --mode d --stream = --mode s, "
           f"bam2flags, generate --binary = generate | utility, codec-sweep: all as expected")
+
+
+#: one rank of phase 4l's two-process container legs: a gloo group
+#: through a file:// rendezvous; prints one JSON line
+CONTAINER_LEGS_WORKER = r'''
+import json, sys, time
+import torch.distributed as dist
+from libflagstats_tpu_torch.ops import kernels as K
+from libflagstats_tpu_torch.parallel import multihost as M
+
+rdv, rank, runs = sys.argv[1], int(sys.argv[2]), json.loads(sys.argv[3])
+M.initialize(init_method="file://" + rdv, world_size=2, rank=rank, backend="gloo")
+legs = {}
+for name, leg, path, kw in runs:
+    dist.barrier()
+    seen = K.LAUNCHES["flagstat"]
+    t0 = time.perf_counter()
+    c = getattr(M, "flagstat_multihost_" + leg)(path, **kw)
+    legs[name] = {"counters": c.tolist(), "wall_s": time.perf_counter() - t0,
+                  "k1_launches": K.LAUNCHES["flagstat"] - seen}
+bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "libflagstats_tpu"))
+assert not bad, bad
+dist.destroy_process_group()
+print(json.dumps({"rank": rank, "legs": legs}))
+'''
+
+
+def drive_cram_path(na_words: np.ndarray, tmp: str, card: str) -> None:
+    """Phase 4l: the rest of the container path. Writes the NA12878
+    column's first 1/8 as a GZIP CRAM and 2^22 words as a rANS CRAM with
+    the port's writer, counts each through flagstat_file on the card
+    (K1), by the fused host walker, K2 and K6, sums the rANS file's
+    container ranges, runs the three container legs of multihost over
+    two gloo ranks, and runs na12878_run at 1/8 scale in both modes."""
+    n_min, n = CONTAINER_MIN_BAM_WORDS, CONTAINER_WORDS
+    print(f"4l depth, cut for run time only: GZIP CRAM {n_min} words (1/8 of NA12878; the "
+          f"writer is Python, gzip level 6, threaded over containers), rANS CRAM, realistic "
+          f"BAM and BGZF SAM {n} words each; na12878_run at --scale 8")
+    impls = (("native", None), ("cuda_pre", "pre"), ("cuda_words", "words"))
+
+    def made(label, write, path):
+        t0 = time.perf_counter()
+        write()
+        print(f"[{card}] 4l {label}: written in {time.perf_counter() - t0:.3f} s, "
+              f"{os.path.getsize(path)} bytes")
+
+    words = na_words[:n_min]
+    path = os.path.join(tmp, "min.cram")
+    made("1/8 NA12878 GZIP CRAM", lambda: cramio.write_cram(path, words), path)
+    t = count_container("1/8 NA12878 GZIP CRAM", path, "cram", words, oracle_counts(words),
+                        card, impls, tag="4l")
+    print(f"[{card}] 4l 1/8 NA12878 GZIP CRAM: read / count = {t['read'] / t['count']:.1f}; "
+          f"read / native = {t['read'] / t['native']:.2f}")
+    os.remove(path)
+
+    words = na_words[:n]
+    ref = oracle_counts(words)
+    rans = os.path.join(tmp, "rans.cram")
+    made("rANS CRAM", lambda: cramio.write_cram(rans, words, method=cramio.RANS), rans)
+    count_container("rANS CRAM", rans, "cram", words, ref, card, impls, tag="4l")
+    containers = cramio.data_container_count(rans)
+    half = containers // 2
+    for impl in (None, "native"):
+        seen = dict(K.LAUNCHES)
+        parts = [cramio.flagstat_cram_range(rans, a, b, impl=impl)
+                 for a, b in ((0, half), (half, containers))]
+        if impl is None:
+            launched(seen, "flagstat")
+            assert cramio.READ_ROUTE == "native", cramio.READ_ROUTE
+        assert (parts[0] + parts[1] == ref).all(), (impl, parts)
+    print(f"[{card}] 4l rANS CRAM: flagstat_cram_range over containers [0, {half}) + "
+          f"[{half}, {containers}) = the oracle, on the card (K1) and by the fused walker")
+
+    # the three container legs over two gloo ranks, on files 4k left or made now
+    files = {"bam": os.path.join(tmp, "real.bam"), "bgzf_sam": os.path.join(tmp, "real.sam.gz"),
+             "cram": rans}
+    for leg, write in (("bam", write_realistic_bam), ("bgzf_sam", write_bgzf_sam)):
+        if not os.path.exists(files[leg]):
+            made(f"{leg} for the legs", lambda: write(files[leg], words), files[leg])
+    t0 = time.perf_counter()
+    # the first card call of a worker pays its context and module load:
+    # cram_warm is the CRAM leg's own time
+    runs = [(leg, leg, path, {}) for leg, path in files.items()]
+    runs += [("cram_warm", "cram", rans, {}), ("cram_native", "cram", rans, {"impl": "native"})]
+    ranks = run_ranks(CONTAINER_LEGS_WORKER, os.path.join(tmp, "rdv_legs"),
+                      (json.dumps(runs),))
+    wall = time.perf_counter() - t0
+    for rank, (rc, out, err) in enumerate(ranks):
+        assert rc == 0, f"container-legs worker {rank} failed (rc {rc}):\n{err[-4000:]}"
+        res = json.loads(out.strip().splitlines()[-1])
+        assert sorted(res["legs"]) == sorted(r[0] for r in runs), res
+        for leg, got in res["legs"].items():
+            assert (np.array(got["counters"], np.uint64) == ref).all(), (rank, leg, got)
+        # the CRAM leg counts its rank's column on the card, the others on the host
+        assert all((got["k1_launches"] > 0) == (leg in ("cram", "cram_warm"))
+                   for leg, got in res["legs"].items()), res["legs"]
+        print(f"[{card}] 4l rank {rank} of 2 (gloo): flagstat_multihost_bam, _bgzf_sam (host "
+              f"walkers), _cram (K1 on the card) and _cram impl=native = the oracle; walls "
+              f"(s): " + ", ".join(f"{leg} {got['wall_s']:.3f}"
+                                  for leg, got in res["legs"].items()))
+    print(f"4l two-process legs: {wall:.2f} s wall for both workers, start-up included")
+    for name in files.values():
+        os.remove(name)
+
+    # the conformance tool, as a user runs it
+    seen = dict(K.LAUNCHES)
+    for argv in (["--container", "cram", "--scale", "8", "--workdir", tmp],
+                 ["--scale", "8", "--workdir", tmp]):
+        t0 = time.perf_counter()
+        rc, _ = captured(argv, main=na12878_run.main)
+        launched(seen, "flagstat")
+        assert rc == 0, argv
+        print(f"[{card}] 4l na12878_run {' '.join(argv[:-2])}: exit 0 in "
+              f"{time.perf_counter() - t0:.1f} s")
 
 
 def median_ms(fn, runs: int, reps: int) -> float:
@@ -1337,6 +1464,7 @@ def zero_launches() -> None:
 
 
 def main(argv=None) -> int:
+    t_start = time.perf_counter()
     run = parse_phases(argv)
     if not torch.cuda.is_available():
         raise RuntimeError("chip_smoke needs a CUDA device; torch sees none")
@@ -1450,6 +1578,16 @@ def main(argv=None) -> int:
             assert all(container_launches[m] > 0 for m in ("flagstat", "pre", "words")), \
                 container_launches
 
+        if "4l" in run:
+            na_words = na12878()
+            zero_launches()
+            with phase("4l, CRAM, container legs and na12878_run"):
+                drive_cram_path(na_words, tmp, card)
+            cram_launches = dict(K.LAUNCHES)
+            print(f"CRAM-path launches (phase 4l): {cram_launches}")
+            assert all(cram_launches[m] > 0 for m in ("flagstat", "pre", "words")), \
+                cram_launches
+
     timers = {"5": time_kernels, "5b": time_pre_kernel, "5c": time_words_kernel,
               "5d": time_probe_kernels, "5e": time_fold_and_setop}
     results = {}
@@ -1460,6 +1598,7 @@ def main(argv=None) -> int:
     assert "jax" not in sys.modules and "libflagstats_tpu" not in sys.modules
     device = {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
               "count": torch.cuda.device_count()}
+    print(f"[chip_smoke: {time.perf_counter() - t_start:.1f} s in all]", flush=True)
     if len(run) < len(PHASES):
         # the kernel line needs every phase's launches and times
         print(card)  # as nvidia-smi --query-gpu=name,power.limit prints it

@@ -14,7 +14,7 @@ Public API:
   flagstat_stream(path)    streaming flagstat of a framed LZ4/Zstd file
                            (io/stream.py)
   flagstat_file(path)      flagstat of any container: .bam, .sam[.gz],
-                           framed .lz4/.zst, raw binary column
+                           .cram, framed .lz4/.zst, raw binary column
   flagstat_sharded(values) data-parallel flagstat over devices
                            (parallel/sharded.py, imported at first call)
   popcnt / intersect_count / union_count / diff_count
@@ -61,21 +61,21 @@ def flagstat_sharded(values, **kwargs):
 def flagstat_file(path, threads: int = 0, impl: str | None = None, device=None):
     """32-counter vector straight from any supported container — the
     `samtools flagstat <file>` workload with no samtools in the loop
-    (format sniffed by io.sniff_format: .bam, .sam[.gz], framed
-    .lz4/.zst, raw binary column; .cram raises NotImplementedError
-    until the port has a CRAM reader).
+    (format sniffed by io.sniff_format: .bam, .sam[.gz], .cram, framed
+    .lz4/.zst, raw binary column).
 
     It counts on the card unless asked otherwise, like every entry point
-    of the port (the JAX package's default for BAM and BGZF-SAM is the
-    fused host walk+count): BAM and SAM read the column with the native
-    readers and count it with ``impl`` on ``device`` (io/bamio.py,
-    io/samio.py; ``impl="native"`` names the fused host walk+count);
+    of the port (the JAX package's default for BAM, BGZF-SAM and CRAM is
+    the fused host walk+count): BAM, SAM and CRAM read the column with
+    the native readers and count it with ``impl`` on ``device``
+    (io/bamio.py, io/samio.py, io/cramio.py; ``impl="native"`` names the
+    fused host walk+count);
     framed files stream through ``flagstat_stream``, or, for an impl
     the stream has not (``"numpy"``, ``"cuda_report"``,
     ``"cuda_words"``), decode the column and count it; a raw column
     counts through ``flagstats_u16``. With no card and neither
     ``device`` nor a host ``impl``, it raises."""
-    from .io import CRAM_PENDING, read_flags_auto, sniff_format
+    from .io import read_flags_auto, sniff_format
     from .io.stream import DEVICE_IMPLS
 
     kind = sniff_format(path)
@@ -88,7 +88,9 @@ def flagstat_file(path, threads: int = 0, impl: str | None = None, device=None):
 
         return flagstat_sam(path, threads=threads, impl=impl, device=device)
     if kind == "cram":
-        raise NotImplementedError(CRAM_PENDING.format(path=path))
+        from .io.cramio import flagstat_cram
+
+        return flagstat_cram(path, threads=threads, impl=impl, device=device)
     if kind.startswith("framed-") and impl in (None, "native", *DEVICE_IMPLS):
         return flagstat_stream(path, codec=kind.removeprefix("framed-"), impl=impl,
                                threads=threads, device=device)

@@ -1,5 +1,5 @@
 """Host IO of the port: the framed block codec (io/codec.py), the
-container readers (io/samio.py, io/bamio.py), the streaming pipeline
+container readers (io/samio.py, io/bamio.py, io/cramio.py), the streaming pipeline
 (io/stream.py) and the native libraries' loader (io/native_lib.py).
 Exports what the JAX package's ``io`` exports, with ``sniff_format`` and
 ``read_flags_auto`` over every container kind."""
@@ -23,11 +23,6 @@ from .samio import (  # noqa: F401
     write_sam,
 )
 
-#: what reading or counting a CRAM file raises until the port has a
-#: CRAM reader
-CRAM_PENDING = ("{path}: CRAM input is not ported yet (ROADMAP Queue 1, "
-                "item 3: the CRAM reader)")
-
 
 def sniff_format(path) -> str:
     """Classify a container by content (extension only as tiebreak):
@@ -36,9 +31,8 @@ def sniff_format(path) -> str:
       (io/bamio.py walker);
     * any other gzip, or plain ``.sam`` / ``.txt`` -> ``"sam"``
       (SAM text / bare FLAG column, io/samio.py);
-    * ``CRAM`` magic -> ``"cram"`` (recognised; the port has no CRAM
-      reader yet, so reading or counting one raises
-      NotImplementedError);
+    * ``CRAM`` magic -> ``"cram"`` (CRAM 3.0 FLAG-series subset,
+      io/cramio.py);
     * ``.lz4`` / ``.zst`` -> ``"framed-lz4"`` / ``"framed-zstd"``
       (the reference's own container, flagstats.cpp:136-138);
     * anything else -> ``"binary"`` (raw little-endian uint16 column,
@@ -97,7 +91,9 @@ def read_flags_auto(path, threads: int = 0, kind: str | None = None):
 
         return read_sam_flags(path, threads=threads)
     if kind == "cram":
-        raise NotImplementedError(CRAM_PENDING.format(path=path))
+        from .cramio import read_cram_flags
+
+        return read_cram_flags(path, threads=threads)
     if kind.startswith("framed-"):
         from .codec import read_framed
 

@@ -6,12 +6,16 @@ kept in ``io/csrc/`` byte for byte equal to ``libflagstats_tpu/io/native/``
 
 * the host library (``load()``): ``flagstats_io.cpp`` (the framed LZ4
   and Zstd block codecs, the parallel framed-stream decoder, the fused
-  framed decode+count and the AVX2 host bit transpose) and
+  framed decode+count, the AVX2 host bit transpose and the CRAM itf8
+  stream decoder) and
   ``flagstats_host.cpp`` (the AVX2 host flagstat and pospopcnt kernels
   and the POPCNT set-algebra counts);
 * the readers (``load_readers()``): ``bam_reader.cpp`` and
   ``sam_reader.cpp`` (the BGZF member walkers, the BAM record walk and
-  the SAM text parser, column and fused walk+count), with their shared
+  the SAM text parser, column and fused walk+count), ``rans4x8.cpp``
+  (the CRAM rANS-4x8 order-0 codec) and ``cram_reader.cpp`` (the fused
+  CRAM container walk+count, which inflates gzip blocks through
+  ``bgzf.h`` and rANS blocks through ``rans4x8.cpp``), with their shared
   ``bgzf.h`` and a second copy of ``flagstats_host.cpp``, whose
   ``lfs_flagstat_u16`` the fused walkers call. A host without zlib or
   libdeflate so never loses the codec library.
@@ -47,7 +51,8 @@ from pathlib import Path
 _HERE = Path(__file__).resolve().parent
 CSRC = _HERE / "csrc"
 SOURCES = (CSRC / "flagstats_io.cpp", CSRC / "flagstats_host.cpp")
-READER_SOURCES = (CSRC / "bam_reader.cpp", CSRC / "sam_reader.cpp", CSRC / "flagstats_host.cpp")
+READER_SOURCES = (CSRC / "bam_reader.cpp", CSRC / "sam_reader.cpp", CSRC / "rans4x8.cpp",
+                  CSRC / "cram_reader.cpp", CSRC / "flagstats_host.cpp")
 #: the readers' one local include (hashed into their build key)
 READER_HEADERS = (CSRC / "bgzf.h",)
 COMPAT_DIR = CSRC / "compat"
@@ -195,13 +200,17 @@ def python_route(what: str) -> None:
           f"unavailable: {first})", file=sys.stderr)
 
 
-def map_sequential(path):
-    """Read-only mapping of a file with MADV_SEQUENTIAL + MADV_WILLNEED:
-    the container walks stream the file front to back, and a cold
-    mapping without the prefetch pays one synchronous major fault per
-    page. WILLNEED is advisory readahead into the page cache, so files
-    larger than RAM degrade gracefully. Returns a uint8 ndarray view (the mapping stays alive through the
-    array's ``.base`` chain)."""
+def map_sequential(path, willneed: bool = True):
+    """Read-only mapping of a file with MADV_SEQUENTIAL (+ MADV_WILLNEED
+    by default): the container walks stream the file front to back, and
+    a cold mapping without the prefetch pays one synchronous major fault
+    per page. WILLNEED is advisory readahead into the page cache, so
+    files larger than RAM degrade gracefully. ``willneed=False`` for
+    walks that touch only some of the pages (the columnar CRAM walker
+    skips the blocks that carry no FLAG series; prefetching the whole
+    file would pay cold IO for bytes the walk never reads). Returns a
+    uint8 ndarray view (the mapping stays alive through the array's
+    ``.base`` chain)."""
     import mmap as _mmap
 
     import numpy as np
@@ -210,7 +219,8 @@ def map_sequential(path):
         mm = _mmap.mmap(fh.fileno(), 0, prot=_mmap.PROT_READ)
     if hasattr(mm, "madvise"):
         mm.madvise(_mmap.MADV_SEQUENTIAL)
-        mm.madvise(_mmap.MADV_WILLNEED)
+        if willneed:
+            mm.madvise(_mmap.MADV_WILLNEED)
     return np.frombuffer(mm, dtype=np.uint8)
 
 
@@ -243,7 +253,10 @@ def fused_flagstat(symbol: str, path, threads: int, fallback_rcs: tuple[int, ...
 
 
 def _bind_readers(lib):
-    """Declare the readers' symbols (bam_reader.cpp, sam_reader.cpp)."""
+    """Declare the readers' symbols (bam_reader.cpp, sam_reader.cpp,
+    rans4x8.cpp, cram_reader.cpp). The CRAM walkers take the counter
+    vector before the thread count and return the record count through
+    a pointer: their order is not that of the BAM and SAM walkers."""
     i64, i32, vp = ctypes.c_int64, ctypes.c_int, ctypes.c_void_p
     i64p = ctypes.POINTER(ctypes.c_int64)
     for name, res, args in (
@@ -260,6 +273,12 @@ def _bind_readers(lib):
         ("lfs_bgzf_sam_flagstat", i64, [vp, i64, vp, i32, i64]),
         ("lfs_bgzf_members", i64, [vp, i64]),
         ("lfs_bgzf_sam_flagstat_range", i64, [vp, i64, i64, i64, vp, i32, i64]),
+        ("lfs_rans4x8_bound", i64, [i64]),
+        ("lfs_rans4x8_compress", i64, [vp, i64, vp, i64]),
+        ("lfs_rans4x8_size", i64, [vp, i64]),
+        ("lfs_rans4x8_decompress", i64, [vp, i64, vp, i64]),
+        ("lfs_cram_flagstat_range", i64, [vp, i64, i64, i64, vp, i32, i64p]),
+        ("lfs_cram_flagstat", i64, [vp, i64, vp, i32, i64p]),
     ):
         fn = getattr(lib, name)
         fn.restype = res
@@ -284,6 +303,7 @@ def _bind(lib):
         ("lfs_flagstat_framed", i64, [vp, i64, i32, i32, vp, vp]),
         ("lfs_pospopcnt_u16", i64, [vp, i64, vp, i32]),
         ("lfs_setop_count", i64, [vp, vp, i64, i32, i32, vp]),
+        ("lfs_itf8_decode", i64, [vp, i64, vp, i64]),
     ):
         fn = getattr(lib, name)
         fn.restype = res

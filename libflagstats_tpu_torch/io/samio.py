@@ -336,16 +336,20 @@ def flagstat_sam(path, threads: int = 0, impl: str | None = None, device=None):
     return D.flagstats_u16(read_sam_flags(path, threads=threads), impl=impl, device=device)
 
 
-def _flagstat_bgzf_sam_parallel(path, threads: int = 0):
+def _flagstat_bgzf_sam_parallel(path, threads: int = 0, member_start: int = 0,
+                                member_stop: int | None = None):
     """In-process member-range-parallel BGZF-SAM counting.
 
     One fused walker is bound by its sequential text-parse thread, so
     this splits the members into R ranges and runs R range walkers at
     once (each with its own inflate pool and parse thread; line
     ownership at range boundaries is exact, sam_reader.cpp
-    bgzf_sam_walk), counters summed. Returns None (the caller takes the
-    single fused walker) when the input is not BGZF or has too few
-    members for the split to pay."""
+    bgzf_sam_walk), counters summed. With ``member_start`` /
+    ``member_stop`` it sub-splits one member range (a multihost rank's
+    shard, parallel/multihost.flagstat_multihost_bgzf_sam), so the
+    distributed leg gets the same parallelism. Returns None (the caller
+    takes the single fused walker) when the input is not BGZF or the
+    range has too few members for the split to pay."""
     import concurrent.futures as cf
 
     from .codec import shard_block_ranges
@@ -356,15 +360,19 @@ def _flagstat_bgzf_sam_parallel(path, threads: int = 0):
         n_members = bgzf_member_count(path)
     except ValueError:
         return None                    # gzip-but-not-BGZF etc.
-    if shards < 2 or n_members < 16 * shards:
+    if member_stop is None:
+        member_stop = n_members
+    span = member_stop - member_start
+    if shards < 2 or span < 16 * shards:
         return None                    # too small: split overhead loses
     # prefetch once (the range walkers map the file without WILLNEED)
     native_lib.map_sequential(path)
     per = max(2, ncpu // shards)
+    ranges = [(member_start + a, member_start + b)
+              for a, b in shard_block_ranges(span, shards)]
     with cf.ThreadPoolExecutor(shards) as pool:
         parts = list(pool.map(
-            lambda r: flagstat_sam_range(path, r[0], r[1], threads=per),
-            shard_block_ranges(n_members, shards)))
+            lambda r: flagstat_sam_range(path, r[0], r[1], threads=per), ranges))
     total = np.zeros_like(parts[0])
     for p in parts:
         total += p

@@ -17,6 +17,18 @@ The collectives are int64. torch has no uint64 all-reduce, and every
 counter and word count stays below 2^63, so int64 is exact: the JAX
 package's (lo, hi) uint32 pairs, which guarded against JAX's silent
 int64 -> int32 downcast, are not needed here.
+
+Of the three container legs, ``flagstat_multihost_cram`` counts on the
+card as the single-file path does: each rank reads the FLAG column of
+its container range and counts it on its device (``impl="native"``
+names the fused range walker). ``flagstat_multihost_bgzf_sam`` and
+``_bam`` are host walkers, as in the JAX package: each rank runs the
+fused range walker of the native readers over its shard and only the 32
+counters cross ranks. No column reader exists for a BAM or BGZF SAM
+byte range, so these two do not count on the card (ROADMAP, Decisions).
+A local ``ValueError`` reaches the ranks' exchange as ok=0 before
+anything is raised: the BAM leg then falls back, the CRAM and BGZF SAM
+legs raise on every rank together, so no rank is left waiting.
 """
 from __future__ import annotations
 
@@ -192,6 +204,113 @@ def flagstat_multihost_file(path, codec: str | int = "lz4", impl: str | None = N
     local = C.read_framed_range(path, codec, start, stop, n_threads=n_threads)
     return flagstat_multihost(local, total_words=sum(words), impl=impl,
                               pad_to_words=max(words), device=device)
+
+
+def _agreed(local, err: ValueError | None, leg: str) -> np.ndarray:
+    """The counters summed over ranks once every rank's local walk is
+    known to have succeeded. A rank that failed (``err``) sends ok=0
+    instead of raising, so the others are not left waiting in a
+    collective; then every rank raises, the failed one with its own
+    error."""
+    failed = np.flatnonzero(_allgather_i64(np.array([err is not None]))[:, 0])
+    if failed.size:
+        if err is not None:
+            raise err
+        raise ValueError(f"{leg}: the walk failed on rank(s) {failed.tolist()}")
+    return _global_counter_sum(local)
+
+
+def flagstat_multihost_bgzf_sam(path, n_threads: int = 0) -> np.ndarray:
+    """Multi-process flagstat of one BGZF-compressed SAM (`bgzip x.sam`).
+
+    Each rank scans the BGZF member chain (headers only, no inflate) and
+    fused-counts its contiguous member range (parallel inflate, line
+    parse and the host count; line ownership is exact at range
+    boundaries, io/csrc/sam_reader.cpp bgzf_sam_walk), split again over
+    in-process range walkers where the range is large enough; only the
+    32 counters cross ranks. Inflate is the bound, so P hosts multiply
+    inflate capacity."""
+    from ..io.samio import _flagstat_bgzf_sam_parallel, bgzf_member_count, flagstat_sam_range
+
+    size, rank = _world()
+    start, stop = C.shard_block_ranges(bgzf_member_count(path), size)[rank]
+    local, err = None, None
+    try:
+        local = _flagstat_bgzf_sam_parallel(path, threads=n_threads, member_start=start,
+                                            member_stop=stop)
+        if local is None:
+            local = flagstat_sam_range(path, start, stop, threads=n_threads)
+    except ValueError as e:
+        err = e
+    return _agreed(local, err, "flagstat_multihost_bgzf_sam")
+
+
+def flagstat_multihost_bam(path, n_threads: int = 0) -> np.ndarray:
+    """Multi-process flagstat of one BAM.
+
+    BAM records are self-delimited with no resync marker, so each rank
+    enters its inflated-byte range by the arrival-exact resync walk
+    (io/csrc/bam_reader.cpp, the machinery of the single-host
+    lfs_bam_flagstat_parallel): rank p walks [total*p/P, total*(p+1)/P)
+    from the first structurally validated record boundary and reports
+    where its chain landed. The gathered (start, end) endpoints must
+    stitch exactly: end_p == start_{p+1} and the last rank's end is the
+    end of the inflated stream (rank 0's start is the header end). Any
+    break, or a failed resync, falls back to rank 0 counting the whole
+    file with the fused host walker (``flagstat_bam(impl="native")``)
+    while the rest add zeros, so the global counters are exact either
+    way. Only the counters and the endpoint pairs cross ranks."""
+    from ..io.bamio import bam_raw_size, flagstat_bam, flagstat_bam_byte_range
+
+    total = bam_raw_size(path)
+    size, rank = _world()
+    lo, hi = total * rank // size, total * (rank + 1) // size
+    try:
+        res = flagstat_bam_byte_range(path, lo, hi, threads=n_threads)
+    except ValueError:
+        # a local error must still reach the allgather below as ok=0:
+        # raising here would leave the other ranks hung in the collective
+        res = None
+    if res is None:
+        ok, counters, start, end = 0, np.zeros(F.N_COUNTERS, np.uint64), 0, 0
+    else:
+        counters, _, start, end = res
+        ok = 1
+    meta = _allgather_i64(np.array([ok, start, end], dtype=np.int64))
+    chain_ok = bool((meta[:, 0] == 1).all()) and meta[size - 1, 2] == total and \
+        all(meta[p, 2] == meta[p + 1, 1] for p in range(size - 1))
+    if not chain_ok:
+        counters = (np.asarray(flagstat_bam(path, threads=n_threads, impl="native"),
+                               dtype=np.uint64)
+                    if rank == 0 else np.zeros(F.N_COUNTERS, np.uint64))
+    return _global_counter_sum(counters)
+
+
+def flagstat_multihost_cram(path, n_threads: int = 0, impl: str | None = None,
+                            device=None) -> np.ndarray:
+    """Multi-process flagstat of one CRAM.
+
+    Containers are self-describing and independent, so each rank walks
+    the header chain (seek-only, a few dozen bytes per container; no
+    resync, unlike BAM) and counts its contiguous container range with
+    io/cramio.flagstat_cram_range, routed as there: ``impl=None`` reads
+    the range's column and counts it on ``device`` (default: the card;
+    with no card and no ``device`` every rank raises before reading),
+    ``impl="native"`` the fused range walker. Only the 32 counters
+    cross ranks."""
+    from ..io.cramio import data_container_count, flagstat_cram_range
+
+    if impl is None:
+        impl = D.auto_impl(0, device)
+    size, rank = _world()
+    start, stop = C.shard_block_ranges(data_container_count(path), size)[rank]
+    local, err = None, None
+    try:
+        local = flagstat_cram_range(path, start, stop, threads=n_threads, impl=impl,
+                                    device=device)
+    except ValueError as e:
+        err = e
+    return _agreed(local, err, "flagstat_multihost_cram")
 
 
 def scaling_sweep(n_words: int = 1 << 24, impl: str | None = None, device_counts=None,

@@ -16,6 +16,7 @@ SPEC.loader.exec_module(chip_smoke)
 
 def test_every_phase_by_default():
     assert "4k" in chip_smoke.PHASES      # the container path
+    assert "4l" in chip_smoke.PHASES      # CRAM, the container legs and na12878_run
     assert chip_smoke.parse_phases([]) == list(chip_smoke.PHASES)
     assert chip_smoke.parse_phases(["--phases", ",".join(chip_smoke.PHASES)]) == \
         list(chip_smoke.PHASES)
@@ -23,7 +24,8 @@ def test_every_phase_by_default():
 
 @pytest.mark.parametrize("arg,want", [("3c,5c", ["3c", "5c"]), ("5c,3c", ["3c", "5c"]),
                                       (" 4i , 3 ", ["3", "4i"]), ("5c,5c", ["5c"]),
-                                      ("4k", ["4k"]), ("5,4k,4j", ["4j", "4k", "5"])])
+                                      ("4k", ["4k"]), ("5,4k,4j", ["4j", "4k", "5"]),
+                                      ("4l", ["4l"]), ("4l,4k", ["4k", "4l"])])
 def test_chosen_phases_run_in_order(arg, want):
     assert chip_smoke.parse_phases(["--phases", arg]) == want
 

@@ -8,6 +8,7 @@ CLI prints (timing lines on standard error aside). Without a card the
 counting entry points raise, or exit 1 with one line, unless the CPU or
 a host impl is asked for."""
 import gzip
+import re
 import struct
 
 import numpy as np
@@ -18,6 +19,7 @@ import libflagstats_tpu as J
 from libflagstats_tpu import cli as jcli
 from libflagstats_tpu.io import bamio as jbam
 from libflagstats_tpu.io import codec as jC
+from libflagstats_tpu.io import cramio as jcram
 from libflagstats_tpu.io import samio as jsam
 from libflagstats_tpu.oracle import flagstat_numpy, generate_flags
 import libflagstats_tpu_torch as L
@@ -26,8 +28,8 @@ from libflagstats_tpu_torch.io import read_flags_auto, sniff_format
 from libflagstats_tpu_torch.ops import kernels as K
 
 KINDS = {"bam": "bam", "realistic.bam": "bam", "sam": "sam", "txt": "sam",
-         "sam.gz": "sam", "bgzf.sam.gz": "sam", "lz4": "framed-lz4", "zst": "framed-zstd",
-         "bin": "binary", "magic.bin": "binary"}
+         "sam.gz": "sam", "bgzf.sam.gz": "sam", "cram": "cram", "lz4": "framed-lz4",
+         "zst": "framed-zstd", "bin": "binary", "magic.bin": "binary"}
 
 
 @pytest.fixture(scope="module")
@@ -50,6 +52,7 @@ def files(tmp_path_factory, words):
         for off in range(0, len(text), 60_000):
             fh.write(jbam._bgzf_member(text[off:off + 60_000], level=1))
         fh.write(jbam.BGZF_EOF)
+    jcram.write_cram(f["cram"], words, records_per_container=40_000)
     jC.write_framed(f["lz4"], words, "lz4", block_bytes=50_000)
     jC.write_framed(f["zst"], words, "zstd", block_bytes=50_000)
     words.astype("<u2").tofile(f["bin"])
@@ -80,7 +83,7 @@ def test_flagstat_file_equals_jax_and_oracle(files, words, name, impl, device):
     np.testing.assert_array_equal(got, flagstat_numpy(_words_of(name, words)))
 
 
-@pytest.mark.parametrize("name", ["bam", "bgzf.sam.gz", "lz4", "bin"])
+@pytest.mark.parametrize("name", ["bam", "bgzf.sam.gz", "cram", "lz4", "bin"])
 @pytest.mark.parametrize("impl", ["cuda", "cuda_pre", "cuda_words", "cuda_report", "numpy"])
 def test_kernel_impls_on_the_cpu_take_the_plain_versions(files, words, name, impl):
     """``device="cpu"`` with a kernel impl counts with its plain version
@@ -112,8 +115,10 @@ def test_truncated_gzip_and_cram(tmp_path):
     cram = tmp_path / "x.cram"
     cram.write_bytes(b"CRAM\x03\x00" + b"\x00" * 64)
     assert sniff_format(cram) == J.io.sniff_format(cram) == "cram"
-    for call in (read_flags_auto, L.flagstat_file):
-        with pytest.raises(NotImplementedError, match="Queue 1, item 3"):
+    with pytest.raises(ValueError) as jax_error:
+        J.io.read_flags_auto(cram)
+    for call in (read_flags_auto, lambda p: L.flagstat_file(p, device="cpu")):
+        with pytest.raises(ValueError, match=re.escape(str(jax_error.value))):
             call(cram)
 
 
@@ -122,7 +127,7 @@ def _no_cuda():
         pytest.skip("checks the no-CUDA-device behaviour")
 
 
-@pytest.mark.parametrize("name", ["bam", "sam", "bgzf.sam.gz", "lz4", "bin"])
+@pytest.mark.parametrize("name", ["bam", "sam", "bgzf.sam.gz", "cram", "lz4", "bin"])
 def test_flagstat_file_raises_without_a_card(files, name):
     _no_cuda()
     before = dict(K.LAUNCHES)
@@ -244,8 +249,7 @@ def test_cli_bad_inputs_exit_1_with_one_line(tmp_path, name, cmd, capsys):
     rc, out, err = _run(tcli.main, [cmd, path, *extra], capsys)
     assert rc == 1 and "in total" not in out
     assert err.count("\n") == 1 and err.startswith("libflagstats_tpu_torch: error:"), err
-    if name != "cram":
-        assert _run(jcli.main, [cmd, path], capsys)[0] == 1
+    assert _run(jcli.main, [cmd, path], capsys)[0] == 1
 
 
 @pytest.mark.parametrize("argv", [["flagstat", "{bam}"], ["decompress", "{lz4}", "--mode", "d"],

@@ -114,6 +114,7 @@ def test_import_pulls_in_no_jax():
         "import libflagstats_tpu_torch.tools.kernel_sweep, libflagstats_tpu_torch.tools.crossover_sweep\n"
         "import libflagstats_tpu_torch.tools.pipeline_balance, libflagstats_tpu_torch.tools.sass_count\n"
         "import libflagstats_tpu_torch.io.samio, libflagstats_tpu_torch.io.bamio\n"
+        "import libflagstats_tpu_torch.io.cramio, libflagstats_tpu_torch.tools.na12878_run\n"
         "from libflagstats_tpu_torch import flagstat_file, cli\n"
         "from libflagstats_tpu_torch.io import sniff_format, read_flags_auto, native_lib\n"
         "assert native_lib.load_readers() is not None, native_lib.READERS_BUILD_ERROR\n"

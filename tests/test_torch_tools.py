@@ -1,7 +1,9 @@
 """The port's tuning tools on the CPU, each with device="cpu" at a small
 size: the rows they print, OK on good data, exit code 1 and MISMATCH /
 FAIL when a kernel wrapper is patched to return a wrong result, the
-one-line exit without a card; and the pieces they stand on: the
+one-line exit without a card; na12878_run at 1/8192 of NA12878, framed
+and through three containers, against the JAX package's column and
+flagstat_file; and the pieces they stand on: the
 ``blocks`` argument of the kernel wrappers, ``harness.wall_time_min``
 and ``profiling.trace``."""
 import glob
@@ -19,10 +21,10 @@ from libflagstats_tpu_torch.ops import kernels as K
 from libflagstats_tpu_torch.ops import probe_kernels as P
 from libflagstats_tpu_torch.ops import words_kernels as W
 from libflagstats_tpu_torch.oracle import flagstat_numpy, generate_flags
-from libflagstats_tpu_torch.tools import (crossover_sweep, kernel_sweep, packed_probe,
-                                          pipeline_balance, sass_count)
+from libflagstats_tpu_torch.tools import (crossover_sweep, kernel_sweep, na12878_run,
+                                          packed_probe, pipeline_balance, sass_count)
 
-TOOLS = (packed_probe, kernel_sweep, crossover_sweep, pipeline_balance)
+TOOLS = (packed_probe, kernel_sweep, crossover_sweep, pipeline_balance, na12878_run)
 
 
 @pytest.fixture
@@ -218,6 +220,54 @@ def test_pipeline_balance_exits_1_on_wrong_counters(monkeypatch, capsys):
     legs = [ln for ln in capsys.readouterr().out.splitlines() if ln.startswith("== ")]
     assert len(legs) == 2 and all(ln.endswith("check=FAIL") for ln in legs)
     assert S._chunk_sums is wrong                             # restored to what the run found
+
+
+# ---- na12878_run ----
+
+NA_SCALE = 8192      # 100,651 words of the synthetic NA12878 column
+
+
+@pytest.mark.parametrize("container", [None, "cram", "bam", "sam.gz"])
+def test_na12878_run_on_the_cpu(tmp_path, capsys, container):
+    """The framed stream and the container path at 1/8192 of NA12878:
+    the published report holds, the counters equal the oracle over the
+    JAX package's column and, for a container, the JAX package's
+    flagstat_file on the same file."""
+    import libflagstats_tpu as J
+    from libflagstats_tpu.datasets import synth_na12878 as jax_synth
+    from libflagstats_tpu.oracle import flagstat_numpy as jax_oracle
+
+    argv = ["--scale", str(NA_SCALE), "--workdir", str(tmp_path), "--device", "cpu"]
+    if container:
+        argv += ["--container", container]
+    assert na12878_run.main(argv) == 0
+    assert "[check] published-report match: True" in capsys.readouterr().out
+    assert list(tmp_path.iterdir()) == []                    # no --keep: the file is gone
+    out = na12878_run.run(NA_SCALE, workdir=tmp_path, container=container, keep=True,
+                          device="cpu")
+    want = jax_oracle(jax_synth(NA_SCALE)[0])
+    np.testing.assert_array_equal(out["counters"], want)
+    assert out["ok"] and all(v > 0 for v in out["walls_s"].values())
+    if container:
+        path = tmp_path / f"na12878_s{NA_SCALE}.{container}"
+        np.testing.assert_array_equal(J.flagstat_file(path), want)
+        np.testing.assert_array_equal(
+            na12878_run.run(NA_SCALE, workdir=tmp_path, container=container,
+                            impl="native")["counters"], want)   # the file is reused
+    capsys.readouterr()
+
+
+def test_na12878_run_exits_1_on_a_mismatch_or_a_bad_request(tmp_path, monkeypatch, capsys):
+    argv = ["--scale", str(NA_SCALE), "--workdir", str(tmp_path), "--device", "cpu",
+            "--container", "cram"]
+    assert na12878_run.main([*argv, "--payload", "realistic"]) == 1
+    err = capsys.readouterr().err.strip().splitlines()
+    assert len(err) == 1 and "FLAG column only" in err[0]
+    real = na12878_run.na12878_report_values
+    monkeypatch.setattr(na12878_run, "na12878_report_values",
+                        lambda scale_divisor: {**real(scale_divisor), "singletons": -1})
+    assert na12878_run.main(argv) == 1
+    assert "[check] published-report match: False" in capsys.readouterr().out
 
 
 # ---- without a card ----
