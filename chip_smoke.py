@@ -31,7 +31,8 @@ it and read just after: phase 4 (a-d) the in-memory entry points, phase
 4h the data-parallel path (its workers report their own counts), phase
 4i the measurement path (the `kernels`, `instrumented` and `inmemory`
 subcommands, the stage decomposition and the scaling sweep), phase 4k
-the container path, phase 4l CRAM, the container legs and na12878_run. Phase 3d
+the container path, phase 4l CRAM, the container legs and na12878_run,
+phase 4m the last tools and the entry points. Phase 3d
 holds the read roofline (K4) and the three stage probes (K7) against
 their plain versions and host references; phase 5d times them. Phase 4j
 drives the tuning tools at full width (packed_probe, kernel_sweep,
@@ -55,8 +56,16 @@ time only), counts each through flagstat_file on the card (K1), by the
 fused host walker, K2 and K6 against the oracle, sums the rANS file's
 container ranges, runs the three container legs of multihost (BAM,
 BGZF SAM, CRAM) over two gloo worker processes, and runs na12878_run at
-1/8 scale through the CRAM container and the framed stream. The run
-prints its own seconds before the result lines.
+1/8 scale through the CRAM container and the framed stream. Phase 4m
+drives the last tools through their main(): stress at its defaults (K1,
+K3, K2 and K6 on random ragged sizes), codegen, alignment_study,
+codec_sweep_na12878 at 1/128 of NA12878, multihost_scaling over the
+NA12878 LZ4 file and 4k's realistic BAM and BGZF SAM, instrumented's
+perf_native block, and graft_entry's entry() and dryrun_multichip(4) on
+the card. Every phase prints what it took, the kernel checks each of
+3-3e too, and the run prints its own seconds before the result lines.
+The host oracle of a large column runs in pieces on a thread pool, and
+that of one repeated word as its counters times the length (exact).
 """
 from __future__ import annotations
 
@@ -99,8 +108,11 @@ from libflagstats_tpu_torch.ops import setalgebra as SA
 from libflagstats_tpu_torch.ops import words_kernels as W
 from libflagstats_tpu_torch.ops.torch_ops import assemble_counters
 from libflagstats_tpu_torch.oracle import flagstat_numpy, generate_flags
-from libflagstats_tpu_torch.tools import (crossover_sweep, kernel_sweep, na12878_run,
-                                          packed_probe, pipeline_balance, stage_decomposition)
+from libflagstats_tpu_torch import graft_entry
+from libflagstats_tpu_torch.tools import (alignment_study, codec_sweep_na12878, codegen,
+                                          crossover_sweep, kernel_sweep, multihost_scaling,
+                                          na12878_run, packed_probe, pipeline_balance,
+                                          stage_decomposition, stress)
 
 WORDS_64MI = 64 << 20
 GW = K.GROUP_WORDS
@@ -140,8 +152,9 @@ NA12878_SKIP = [F.FREVERSE_OFF, F.FMREVERSE_OFF, 16 + F.FREVERSE_OFF, 16 + F.FMR
 #: the phases, in the order they run: 3-3e kernel checks, 4a (a-d) the
 #: in-memory entry points, 4e (e-f) streaming, 4g word space, 4h
 #: data-parallel, 4i measurement, 4j tools, 4k container files, 4l CRAM
-#: files, the container legs and na12878_run, 5-5e kernel times
-PHASES = ("3", "3b", "3c", "3d", "3e", "4a", "4e", "4g", "4h", "4i", "4j", "4k", "4l",
+#: files, the container legs and na12878_run, 4m the last tools,
+#: perf_native and the entry points, 5-5e kernel times
+PHASES = ("3", "3b", "3c", "3d", "3e", "4a", "4e", "4g", "4h", "4i", "4j", "4k", "4l", "4m",
           "5", "5b", "5c", "5d", "5e")
 #: K6's word distributions of phase 5c at 64Mi: full-range words (a
 #: lookup's bank is a word's low 5 bits: ~3-4-way conflicts), real flags
@@ -196,7 +209,7 @@ def check_kernels(max_err: dict) -> None:
     for n in sizes:
         for kind in kinds:
             x = make_words(kind, n)
-            ref = flagstat_numpy(x).astype(np.int64)
+            ref = oracle_counts(x).astype(np.int64)
             spec = B.flagstat_bitsliced_np(x).astype(np.int64)
             assert (spec == ref).all(), (n, kind, "bitsliced spec vs oracle")
             pos = pospopcnt_np(x)
@@ -265,7 +278,7 @@ def check_pre_kernel(max_err: dict) -> None:
         n = max(g * GW - 777, 0)   # a ragged last group: zero words pad it
         for kind in kinds:
             x = make_words(kind, n)
-            ref = flagstat_numpy(x).astype(np.int64)
+            ref = oracle_counts(x).astype(np.int64)
             for name, report, packed in PRE_LAYOUTS:
                 rows = K.packed_rows_for(report) if packed else tuple(range(32))
                 planes = torch.from_numpy(B.pretranspose_host_packed(x, rows)).cuda()
@@ -285,7 +298,7 @@ def check_pre_kernel(max_err: dict) -> None:
                     where = (name, g, kind, label)
                     assert err == 0, (where, got.tolist(), plain.tolist())
                     c = counters_from_sums(got, "flagstat_report" if report else "flagstat", nt)
-                    want = ref if label == "whole" else flagstat_numpy(x[GW:]).astype(np.int64)
+                    want = ref if label == "whole" else oracle_counts(x[GW:]).astype(np.int64)
                     idx = list(F.REPORT_COUNTERS) if report else list(range(32))
                     assert (c[idx] == want[idx]).all(), (where, c, want)
                     if report:
@@ -323,7 +336,7 @@ def check_words_kernel(max_err: dict) -> None:
     for n in sizes:
         for kind in kinds:
             x = make_words(kind, n)
-            ref = flagstat_numpy(x).astype(np.int64)
+            ref = oracle_counts(x).astype(np.int64)
             buf = torch.from_numpy(np.concatenate([np.zeros(1, np.uint16), x])).cuda()
             for offset, xd in (("aligned", buf[1:].clone()), ("odd-offset slice", buf[1:])):
                 check(xd, n, ref, (n, kind, offset))
@@ -338,7 +351,7 @@ def check_words_kernel(max_err: dict) -> None:
               ("all 0x0DFF", np.full(4 * WORDS_64MI, 0x0DFF, np.uint16), (1,))]
     for kind, x, grids in forced:
         xd = torch.from_numpy(x).cuda()
-        ref = flagstat_numpy(x).astype(np.int64)
+        ref = oracle_counts(x).astype(np.int64)
         for blocks in grids:
             bodies = 2 * -(-x.size // (blocks * lib.lfs_words_block_words()))
             check(xd, x.size, ref, (kind, x.size, f"blocks={blocks}"), blocks)
@@ -460,6 +473,18 @@ def check_fold_and_setop(max_err: dict) -> None:
           f"bits), kernel = plain = numpy exactly (max_abs_err {max_err['setop']})")
 
 
+_X64 = {}
+
+
+def words_64mi() -> tuple[np.ndarray, np.ndarray]:
+    """The 64Mi full-range words (seed 7) of phases 4a-4j and their
+    counters, made once."""
+    if not _X64:
+        x = generate_flags(WORDS_64MI, seed=7, full_range=True)
+        _X64.update(x=x, ref=oracle_counts(x))
+    return _X64["x"], _X64["ref"]
+
+
 def launched(before: dict, mode: str) -> None:
     assert K.LAUNCHES[mode] > before[mode], f"{mode} kernel was not launched"
     before.update(K.LAUNCHES)
@@ -468,8 +493,7 @@ def launched(before: dict, mode: str) -> None:
 def drive_main_path() -> dict:
     """Phase 4: the public entry points at full scale."""
     seen = dict(K.LAUNCHES)
-    x = generate_flags(WORDS_64MI, seed=7, full_range=True)
-    ref = flagstat_numpy(x)
+    x, ref = words_64mi()
     assert D.auto_impl(x.size) == D.auto_impl(1) == D.auto_impl(0) == "cuda"
 
     # (a) 64Mi full-range words, from the host and from a device tensor
@@ -565,8 +589,7 @@ def drive_stream_path(na_words: np.ndarray, card: str, tmp: str) -> str:
     """Phase 4 (e, f): the streaming device path at full width. Leaves
     the NA12878 LZ4 file in ``tmp`` and returns its path."""
     seen = dict(K.LAUNCHES)
-    x = generate_flags(WORDS_64MI, seed=7, full_range=True)
-    ref = flagstat_numpy(x)
+    x, ref = words_64mi()
     c = L.flagstats_u16(x, impl="cuda_pre")
     launched(seen, "pre")
     assert (c == ref).all(), (c, ref)
@@ -636,8 +659,8 @@ def check_na12878(c: np.ndarray, want: np.ndarray, label: str, report: bool = Fa
 def drive_words_path(na_words: np.ndarray) -> None:
     """Phase 4g: the word-space impl through the public entry point."""
     seen = dict(K.LAUNCHES)
-    x = generate_flags(WORDS_64MI, seed=7, full_range=True)
-    assert (L.flagstats_u16(x, impl="cuda_words") == flagstat_numpy(x)).all()
+    x, ref = words_64mi()
+    assert (L.flagstats_u16(x, impl="cuda_words") == ref).all()
     launched(seen, "words")
     want = L.flagstats_u16(na_words, impl="native")
     t0 = time.perf_counter()
@@ -753,8 +776,7 @@ def drive_parallel_path(na_words: np.ndarray, na_path: str, tmp: str, card: str)
         print(f"NCCL probe, two ranks on cuda:0, rank {rank}: rc {rc}; {last}")
 
     # (iii) a one-rank NCCL group: the all_reduce runs on the card
-    x = generate_flags(WORDS_64MI, seed=7, full_range=True)
-    ref = flagstat_numpy(x)
+    x, ref = words_64mi()
     MH.initialize(init_method="file://" + os.path.join(tmp, "rdv_one"), world_size=1,
                   rank=0, backend="nccl")
     try:
@@ -803,8 +825,9 @@ def drive_measurement_path() -> dict:
     with contextlib.redirect_stderr(note):
         rc, lines = captured(["instrumented", "-n", str(1 << 20)])
     print(f"    {note.getvalue().strip()}")
-    rows = [line.split("\t") for line in lines[1:]]
+    rows = [line.split("\t") for line in instrumented.rows(lines)]
     assert rc == 0 and all(r[-1] == "ok" and r[-2] != "n/a" for r in rows), lines
+    assert len(rows) == 6 and lines[len(rows) + 1] == "", lines   # then the perf block
     assert note.getvalue().endswith(f"over {instrumented.ROOFLINE_MIN_BYTES} bytes\n"), note
     rc, lines = captured(["inmemory"])
     assert rc == 0 and all(line.endswith("OK") for line in lines), lines
@@ -881,13 +904,13 @@ def drive_tools_path(na_words: np.ndarray, tmp: str) -> None:
     assert K.LAUNCHES["setop"] == before + 5, K.LAUNCHES
     del a, b
 
-    x = generate_flags(WORDS_64MI, seed=7, full_range=True)
+    x, ref = words_64mi()
     logdir = os.path.join(tmp, "trace")
     with profiling.trace(logdir):
         c = L.flagstats_u16(x)
         torch.cuda.synchronize()
     files = glob.glob(os.path.join(logdir, "*.trace.json"))
-    assert len(files) == 1 and (c == flagstat_numpy(x)).all(), files
+    assert len(files) == 1 and (c == ref).all(), files
     with open(files[0]) as f:
         text = f.read()
     assert "stream_sums_kernel" in text, "the trace does not name K1's kernel"
@@ -895,10 +918,21 @@ def drive_tools_path(na_words: np.ndarray, tmp: str) -> None:
           f"{os.path.getsize(files[0])} bytes of Chrome trace, names stream_sums_kernel")
 
 
+#: words of one piece of the threaded oracle
+ORACLE_PIECE = 1 << 22
+
+
 def oracle_counts(words: np.ndarray) -> np.ndarray:
-    """flagstat_numpy of ``words``, in 4Mi-word pieces on a thread pool
-    (the oracle is additive over pieces, and numpy releases the GIL)."""
-    step = 1 << 22
+    """flagstat_numpy of ``words``, exactly and fast: a column of one
+    repeated word gives that word's counters times its length (every
+    counter is a sum over words), any other goes in 4Mi-word pieces on
+    a thread pool (the oracle is additive over pieces, and numpy
+    releases the GIL)."""
+    step = ORACLE_PIECE
+    if words.size <= step:
+        return flagstat_numpy(words)
+    if not (words != words[0]).any():
+        return flagstat_numpy(words[:1]) * np.uint64(words.size)
     with cf.ThreadPoolExecutor(os.cpu_count() or 4) as pool:
         parts = list(pool.map(lambda a: flagstat_numpy(words[a:a + step]),
                               range(0, words.size, step)))
@@ -1166,8 +1200,7 @@ def drive_cram_path(na_words: np.ndarray, tmp: str, card: str) -> None:
               f"(s): " + ", ".join(f"{leg} {got['wall_s']:.3f}"
                                   for leg, got in res["legs"].items()))
     print(f"4l two-process legs: {wall:.2f} s wall for both workers, start-up included")
-    for name in files.values():
-        os.remove(name)
+    os.remove(rans)   # phase 4m's multihost_scaling reuses the BAM and the BGZF SAM
 
     # the conformance tool, as a user runs it
     seen = dict(K.LAUNCHES)
@@ -1179,6 +1212,115 @@ def drive_cram_path(na_words: np.ndarray, tmp: str, card: str) -> None:
         assert rc == 0, argv
         print(f"[{card}] 4l na12878_run {' '.join(argv[:-2])}: exit 0 in "
               f"{time.perf_counter() - t0:.1f} s")
+
+
+#: phase 4m: the seed of its stress run (printed; a MISMATCH replays
+#: with it) and the scale of its codec sweep, 1/128 of NA12878 (6,441,727
+#: words; cut for run time only: at the JAX default of 1/8, Zstd c16-20
+#: over 206 MB would take minutes each)
+STRESS_SEED = 1017
+CODEC_SWEEP_SCALE = 128
+#: "[kind] label: wall 0.12s (345 Mwords/s; 678 records; ..." of multihost_scaling
+SCALING_LINE = re.compile(r"^\[(\w+)\] (\d)proc x (\d)T: wall [0-9.]+s \(\d+ Mwords/s; "
+                          r"(\d+) records;")
+
+
+def drive_remaining_tools(na_words: np.ndarray, na_path: str | None, tmp: str,
+                          card: str) -> None:
+    """Phase 4m: the last tools, perf_native and the entry points, each
+    through its main() or its public call, on the card: stress at its
+    defaults (K1, K3, K2 and K6 on ragged sizes), codegen,
+    alignment_study at its defaults, codec_sweep_na12878 at 1/128,
+    multihost_scaling over the NA12878 LZ4 file, the realistic BAM and
+    the BGZF SAM, instrumented's perf block, graft_entry.entry() and
+    dryrun_multichip(4) on the card's shards."""
+    walls = {}
+
+    def tool(name: str, argv: list, main) -> list:
+        t0 = time.perf_counter()
+        rc, lines = captured(argv, main)
+        walls[name] = time.perf_counter() - t0
+        assert rc == 0, (name, rc, lines[-20:])
+        return lines
+
+    def launched_all(before: dict, modes: tuple) -> None:
+        assert all(K.LAUNCHES[m] > before[m] for m in modes), (modes, before, K.LAUNCHES)
+        before.update(K.LAUNCHES)
+
+    seen = dict(K.LAUNCHES)
+    lines = tool("stress", ["--seed", str(STRESS_SEED)], stress.main)
+    impls = stress.impls_for(torch.device("cuda"))
+    assert len(impls) == 7 and lines[-1] == "stress OK: 50 rounds x 7 impls", lines[-3:]
+    launched_all(seen, ("flagstat", "flagstat_report", "pre", "words"))
+    print(f"[{card}] 4m stress --seed {STRESS_SEED}: 50 rounds up to 2,000,000 words, every "
+          f"round = flagstat_numpy in {impls}")
+
+    lines = tool("codegen", [], codegen.main)
+    assert lines[-2:] == [codegen.WORD_TABLE_LINE, "OK"], lines[-2:]
+
+    lines = tool("alignment_study", [], alignment_study.main)
+    assert lines[0] == alignment_study.HEADER and len(lines) == 9, lines
+    assert [ln.split("\t")[1] for ln in lines[1:]] == [str(o) for o in alignment_study.OFFSETS] * 2
+
+    lines = tool("codec_sweep_na12878", [str(CODEC_SWEEP_SCALE)], codec_sweep_na12878.main)
+    assert lines[0] == codec_sweep_na12878.HEADER and \
+        [tuple(ln.split("\t")[:2]) for ln in lines[1:]] == \
+        [(c, label) for c, _, label in codec_sweep_na12878.CONFIGS], lines
+    launched_all(seen, ("flagstat",))
+    print(f"[{card}] 4m codec_sweep_na12878 {CODEC_SWEEP_SCALE}: 39 configs; lz4, zstd and raw "
+          f"counters = flagstat_numpy on the card (K1) and by the fused native pipeline")
+
+    files = {"framed": na_path, "bam": os.path.join(tmp, "real.bam"),
+             "bgzf_sam": os.path.join(tmp, "real.sam.gz")}
+    words = na_words[:CONTAINER_WORDS]
+    if files["framed"] is None:
+        files["framed"] = os.path.join(tmp, "na12878.lz4")
+        C.write_framed(files["framed"], na_words, "lz4", level=1)
+    for kind, write in (("bam", write_realistic_bam), ("bgzf_sam", write_bgzf_sam)):
+        if not os.path.exists(files[kind]):
+            write(files[kind], words)
+    lines = tool("multihost_scaling", ["--file", files["framed"], "--sam-gz", files["bgzf_sam"],
+                                       "--bam", files["bam"], "--iters", "1"],
+                 multihost_scaling.main)
+    want = {"framed": na_words.size, "bam": words.size, "bgzf_sam": words.size}
+    worlds = [m.groups() for m in map(SCALING_LINE.match, lines) if m]
+    assert sorted((k, p, t) for k, p, t, _ in worlds) == sorted(
+        (k, str(p), str(t)) for k in want for p, t, _ in multihost_scaling.WORLDS), lines
+    assert all(int(n) == want[k] for k, _, _, n in worlds), (worlds, want)
+    ratios = [json.loads(ln) for ln in lines if ln.startswith("{")]
+    assert [r["kind"] for r in ratios] == list(multihost_scaling.KINDS), lines
+    print(f"[{card}] 4m multihost_scaling: 3 worlds (1x2T, 1x4T, 2x2T over gloo) over the "
+          f"NA12878 LZ4 file, the realistic BAM and the BGZF SAM, every record count = the "
+          f"file's")
+
+    lines = tool("instrumented", ["instrumented", "-n", str(1 << 20), "-i", "1",
+                                  "--no-roofline"], cli.main)
+    rows = instrumented.rows(lines)
+    block = lines[len(rows) + 2:]
+    assert len(rows) == 6 and lines[len(rows) + 1] == "" and block, lines
+    if block[0].startswith("perf_event unavailable: "):
+        perf = block[0]
+    else:
+        kinds = [ln.split("\t")[2] for ln in block[1:3]]
+        assert block[0].startswith("kernel\twords\tcounted\t") and \
+            [ln.split("\t")[0] for ln in block[1:3]] == ["lfs_flagstat_u16",
+                                                         "lfs_pospopcnt_u16"], block
+        assert set(kinds) <= {"hw", "sw-only"}, block
+        perf = f"perf rows {kinds[0]}: events " + ", ".join(block[0].split("\t")[3:])
+    print(f"[{card}] 4m instrumented perf block: {perf}")
+
+    t0 = time.perf_counter()
+    fn, args = graft_entry.entry()
+    got = fn(*args).cpu().numpy()
+    want_entry = flagstat_numpy(args[0].cpu().numpy().view(np.uint16)).astype(np.int64)
+    assert args[0].is_cuda and np.array_equal(got, want_entry), (got, want_entry)
+    launched_all(seen, ("flagstat",))
+    graft_entry.dryrun_multichip(4)
+    launched_all(seen, ("flagstat", "pre"))
+    walls["graft_entry"] = time.perf_counter() - t0
+    print(f"[{card}] 4m graft_entry: entry() fn(*args) on {args[0].numel()} words on the card = "
+          f"flagstat_numpy; dryrun_multichip(4) on the card's shards: every leg = the oracle")
+    print(f"[{card}] 4m walls (s): " + ", ".join(f"{k} {v:.1f}" for k, v in walls.items()))
 
 
 def median_ms(fn, runs: int, reps: int) -> float:
@@ -1497,7 +1639,8 @@ def main(argv=None) -> int:
     with phase("3-3e, kernels against plain versions"):
         for name, check in checks.items():
             if name in run:
-                check(max_err)
+                with phase(name):
+                    check(max_err)
 
     na = {}
 
@@ -1587,6 +1730,16 @@ def main(argv=None) -> int:
             print(f"CRAM-path launches (phase 4l): {cram_launches}")
             assert all(cram_launches[m] > 0 for m in ("flagstat", "pre", "words")), \
                 cram_launches
+
+        if "4m" in run:
+            na_words = na12878()
+            zero_launches()
+            with phase("4m, the last tools, perf_native and the entry points"):
+                drive_remaining_tools(na_words, na_path, tmp, card)
+            last_launches = dict(K.LAUNCHES)
+            print(f"last-tools launches (phase 4m): {last_launches}")
+            assert all(last_launches[m] > 0 for m in ("flagstat", "flagstat_report", "pre",
+                                                       "words")), last_launches
 
     timers = {"5": time_kernels, "5b": time_pre_kernel, "5c": time_words_kernel,
               "5d": time_probe_kernels, "5e": time_fold_and_setop}

@@ -13,12 +13,15 @@ The port of ``libflagstats_tpu.bench.instrumented``:
   device memory and not from the 50 MB L2, and the host memcpy over the
   column's bytes on the CPU; a note on standard error names the bytes it
   was taken over;
-* tab-separated rows (`-t`, ":310-319").
+* tab-separated rows (`-t`, ":310-319");
+* the reference's hardware counters per word (":161-166, 417-454") for
+  the native host kernels, after a blank line: ``perf_native``'s block
+  (``hw`` rows where the host exposes a PMU, ``sw-only`` rows where only
+  software events open, else one "perf_event unavailable: <why>" line).
 
 The variants: ``numpy``, ``native`` (where g++ builds the host library)
 and ``torch`` on the timing device, and on the card ``cuda``,
-``cuda_pre`` and ``cuda_words``. The JAX package's hardware-counter rows
-(``perf_native``) are not ported yet.
+``cuda_pre`` and ``cuda_words``.
 """
 from __future__ import annotations
 
@@ -99,7 +102,10 @@ def host_memcpy_roofline(n_words: int, iters: int = 5) -> float:
 
 
 def run_all(n: int = 1 << 20, iters: int = 5, with_roofline: bool = True,
-            verbose: bool = False, device=None) -> list[str]:
+            verbose: bool = False, device=None, with_perf: bool = True) -> list[str]:
+    """The header, one row per variant and, with ``with_perf`` and the
+    native host library, a blank line and the perf block (``rows``
+    splits the variant rows off)."""
     dev = timing_device(device)
     variants = ["numpy"] + (["native"] if native_host.available() else []) + ["torch"]
     if dev.type == "cuda":
@@ -121,4 +127,15 @@ def run_all(n: int = 1 << 20, iters: int = 5, with_roofline: bool = True,
     for name in variants:
         fn = get_function(n, impl=name, device=None if name in ("numpy", "native") else dev)
         lines.append(run_variant(name, fn, n, iters, verbose=verbose).row(roof))
+    if with_perf and native_host.available():
+        from . import perf_native
+
+        lines.append("")
+        lines += perf_native.format_report(
+            perf_native.native_kernel_report(n_words=n, iters=max(iters, 3))).splitlines()
     return lines
+
+
+def rows(lines: list[str]) -> list[str]:
+    """The variant rows of ``run_all``'s lines (no header, no perf block)."""
+    return lines[1:lines.index("")] if "" in lines else lines[1:]

@@ -252,13 +252,13 @@ def _cmd_inmemory(args):
 
 
 def _cmd_instrumented(args):
-    from .bench.instrumented import run_all
+    from .bench.instrumented import rows, run_all
 
     lines = run_all(n=args.n, iters=args.iters, with_roofline=not args.no_roofline,
                     verbose=args.verbose, device=args.device)
     for line in lines:
         print(line)
-    return 0 if all(line.endswith("\tok") for line in lines[1:]) else 1
+    return 0 if all(line.endswith("\tok") for line in rows(lines)) else 1
 
 
 def _cmd_kernels(args):

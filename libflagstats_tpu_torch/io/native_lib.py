@@ -18,14 +18,18 @@ kept in ``io/csrc/`` byte for byte equal to ``libflagstats_tpu/io/native/``
   ``bgzf.h`` and rANS blocks through ``rans4x8.cpp``), with their shared
   ``bgzf.h`` and a second copy of ``flagstats_host.cpp``, whose
   ``lfs_flagstat_u16`` the fused walkers call. A host without zlib or
-  libdeflate so never loses the codec library.
+  libdeflate so never loses the codec library;
+* the perf counters (``load_perf()``): ``perf_events.cpp``, the
+  ``perf_event_open`` counter groups that ``bench/perf_native.py``
+  reads. It includes ``<linux/perf_event.h>``, so an image without that
+  header loses the counters and nothing else.
 
 g++ builds each into ``build/torch_host/``, keyed on a hash of the
 sources, the flags and the host tag, through a temp file and a rename,
 so a concurrent build never loads a half-written file. A loader
 returns None when its build fails and keeps the compiler's message in
-``BUILD_ERROR`` / ``READERS_BUILD_ERROR``: callers that must not fall
-back raise with it.
+``BUILD_ERROR`` / ``READERS_BUILD_ERROR`` / ``PERF_BUILD_ERROR``:
+callers that must not fall back raise with it.
 
 Missing headers: where the system ``<zstd.h>`` compiles and ``-lzstd``
 links, the build uses them ("system"); otherwise it takes the
@@ -55,6 +59,7 @@ READER_SOURCES = (CSRC / "bam_reader.cpp", CSRC / "sam_reader.cpp", CSRC / "rans
                   CSRC / "cram_reader.cpp", CSRC / "flagstats_host.cpp")
 #: the readers' one local include (hashed into their build key)
 READER_HEADERS = (CSRC / "bgzf.h",)
+PERF_SOURCES = (CSRC / "perf_events.cpp",)
 COMPAT_DIR = CSRC / "compat"
 BUILD_DIR = _HERE.parent.parent / "build" / "torch_host"
 CXX_FLAGS = ("-O3", "-march=native", "-std=c++17", "-shared", "-fPIC",
@@ -77,11 +82,15 @@ DEFLATE_ROUTE: str | None = None
 BUILD_ERROR = ""
 #: why the last ``load_readers()`` returned None ("" until one did)
 READERS_BUILD_ERROR = ""
+#: why the last ``load_perf()`` returned None ("" until one did)
+PERF_BUILD_ERROR = ""
 
 _lib = None
 _readers = None
+_perf = None
 _lock = threading.Lock()
 _readers_lock = threading.Lock()
+_perf_lock = threading.Lock()
 
 
 def _links(probe: str, libs: list[str]) -> bool:
@@ -183,6 +192,21 @@ def load_readers():
         return _readers
 
 
+def load_perf():
+    """The bound perf-counter object (``perf_events.cpp``), built at
+    first use, or None if it cannot be built or loaded
+    (``PERF_BUILD_ERROR`` says why)."""
+    global _perf, PERF_BUILD_ERROR
+    with _perf_lock:
+        if _perf is None and not PERF_BUILD_ERROR:
+            try:
+                _perf = _bind_perf(ctypes.CDLL(str(_compile("libflagstats_perf", PERF_SOURCES,
+                                                             (), [], []))))
+            except (OSError, RuntimeError, AttributeError) as e:
+                PERF_BUILD_ERROR = f"{type(e).__name__}: {e}"
+        return _perf
+
+
 def readers():
     """The readers' library; raises, with ``READERS_BUILD_ERROR``, when
     it did not build (for callers that asked for the native walkers)."""
@@ -279,6 +303,21 @@ def _bind_readers(lib):
         ("lfs_rans4x8_decompress", i64, [vp, i64, vp, i64]),
         ("lfs_cram_flagstat_range", i64, [vp, i64, i64, i64, vp, i32, i64p]),
         ("lfs_cram_flagstat", i64, [vp, i64, vp, i32, i64p]),
+    ):
+        fn = getattr(lib, name)
+        fn.restype = res
+        fn.argtypes = args
+    return lib
+
+
+def _bind_perf(lib):
+    """Declare the perf-counter symbols (perf_events.cpp)."""
+    i64, i32, vp = ctypes.c_int64, ctypes.c_int32, ctypes.c_void_p
+    for name, res, args in (
+        ("lfs_perf_open", i64, [vp, vp, i32, vp]),
+        ("lfs_perf_start", i32, [i64]),
+        ("lfs_perf_stop", i32, [i64, vp]),
+        ("lfs_perf_close", None, [i64]),
     ):
         fn = getattr(lib, name)
         fn.restype = res

@@ -79,10 +79,13 @@ def test_instrumented_on_the_cpu(capsys):
     lines = instrumented.run_all(n=1 << 12, iters=1, device="cpu")
     assert lines[0] == instrumented.HEADER
     assert capsys.readouterr().err == f"note: roofline: host memcpy, over {2 << 12} bytes\n"
-    names = [ln.split("\t")[0] for ln in lines[1:]]
+    rows = instrumented.rows(lines)
+    names = [ln.split("\t")[0] for ln in rows]
     assert names[0] == "numpy" and names[-1] == "torch"
-    assert all(ln.endswith("\tok") and len(ln.split("\t")) == 8 for ln in lines[1:])
-    assert all(ln.split("\t")[6] != "n/a" for ln in lines[1:])   # the column is printed
+    assert all(ln.endswith("\tok") and len(ln.split("\t")) == 8 for ln in rows)
+    assert all(ln.split("\t")[6] != "n/a" for ln in rows)   # the column is printed
+    # the host library built, so the perf block follows the rows
+    assert lines[len(rows) + 1] == "" and len(lines) > len(rows) + 2
 
 
 @pytest.mark.parametrize("n,want", [(1 << 20, 256 << 20), (0, 256 << 20), (128 << 20, 256 << 20),
@@ -123,7 +126,10 @@ def test_inmemory_and_instrumented_cli_on_the_cpu(capsys):
     assert cli.main(["instrumented", "-n", "4096", "-i", "1", "--no-roofline",
                      "--device", "cpu"]) == 0
     out = capsys.readouterr().out.splitlines()
-    assert out[0] == instrumented.HEADER and all(ln.endswith("\tok") for ln in out[1:])
+    assert out[0] == instrumented.HEADER
+    assert all(ln.endswith("\tok") for ln in instrumented.rows(out))
+    block = out[out.index("") + 1:]
+    assert block[0].startswith(("kernel\twords\tcounted", "perf_event unavailable: "))
 
 
 def test_kernels_cli_without_a_card_exits_with_one_line():

@@ -115,9 +115,15 @@ def test_import_pulls_in_no_jax():
         "import libflagstats_tpu_torch.tools.pipeline_balance, libflagstats_tpu_torch.tools.sass_count\n"
         "import libflagstats_tpu_torch.io.samio, libflagstats_tpu_torch.io.bamio\n"
         "import libflagstats_tpu_torch.io.cramio, libflagstats_tpu_torch.tools.na12878_run\n"
+        "import libflagstats_tpu_torch.tools.codegen, libflagstats_tpu_torch.tools.stress\n"
+        "import libflagstats_tpu_torch.tools.alignment_study\n"
+        "import libflagstats_tpu_torch.tools.codec_sweep_na12878\n"
+        "import libflagstats_tpu_torch.tools.multihost_scaling\n"
+        "import libflagstats_tpu_torch.bench.perf_native, libflagstats_tpu_torch.graft_entry\n"
         "from libflagstats_tpu_torch import flagstat_file, cli\n"
         "from libflagstats_tpu_torch.io import sniff_format, read_flags_auto, native_lib\n"
         "assert native_lib.load_readers() is not None, native_lib.READERS_BUILD_ERROR\n"
+        "assert native_lib.load_perf() is not None, native_lib.PERF_BUILD_ERROR\n"
         "import runpy; runpy.run_path('chip_smoke.py')  # its imports, no main()\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m.split('.')[0] in ('jax', 'jaxlib', 'libflagstats_tpu'))\n"

@@ -14,7 +14,8 @@ COPY = REPO / "libflagstats_tpu_torch" / "io" / "csrc"
 
 
 @pytest.mark.parametrize("name", ["flagstats_io.cpp", "flagstats_host.cpp", "bam_reader.cpp",
-                                  "sam_reader.cpp", "rans4x8.cpp", "cram_reader.cpp", "bgzf.h"])
+                                  "sam_reader.cpp", "rans4x8.cpp", "cram_reader.cpp", "bgzf.h",
+                                  "perf_events.cpp"])
 def test_host_source_copy_is_byte_identical(name):
     copy = (COPY / name).read_bytes()
     assert copy == (ORIGINAL / name).read_bytes()
@@ -30,6 +31,7 @@ def test_loader_builds_only_the_ports_sources():
             'CSRC / "rans4x8.cpp",\n                  CSRC / "cram_reader.cpp", '
             'CSRC / "flagstats_host.cpp")') in text
     assert 'READER_HEADERS = (CSRC / "bgzf.h",)' in text
+    assert 'PERF_SOURCES = (CSRC / "perf_events.cpp",)' in text
     assert '"libflagstats_tpu"' not in text
 
 

@@ -1,11 +1,11 @@
 """The port's tuning tools on the CPU, each with device="cpu" at a small
 size: the rows they print, OK on good data, exit code 1 and MISMATCH /
 FAIL when a kernel wrapper is patched to return a wrong result, the
-one-line exit without a card; na12878_run at 1/8192 of NA12878, framed
-and through three containers, against the JAX package's column and
-flagstat_file; and the pieces they stand on: the
-``blocks`` argument of the kernel wrappers, ``harness.wall_time_min``
-and ``profiling.trace``."""
+one-line exit without a card (stress and codec_sweep_na12878 too);
+na12878_run at 1/8192 of NA12878, framed and through three containers,
+against the JAX package's column and flagstat_file; and the pieces they
+stand on: the ``blocks`` argument of the kernel wrappers,
+``harness.wall_time_min`` and ``profiling.trace``."""
 import glob
 import json
 
@@ -21,10 +21,12 @@ from libflagstats_tpu_torch.ops import kernels as K
 from libflagstats_tpu_torch.ops import probe_kernels as P
 from libflagstats_tpu_torch.ops import words_kernels as W
 from libflagstats_tpu_torch.oracle import flagstat_numpy, generate_flags
-from libflagstats_tpu_torch.tools import (crossover_sweep, kernel_sweep, na12878_run,
-                                          packed_probe, pipeline_balance, sass_count)
+from libflagstats_tpu_torch.tools import (codec_sweep_na12878, crossover_sweep, kernel_sweep,
+                                          na12878_run, packed_probe, pipeline_balance,
+                                          sass_count, stress)
 
-TOOLS = (packed_probe, kernel_sweep, crossover_sweep, pipeline_balance, na12878_run)
+TOOLS = (packed_probe, kernel_sweep, crossover_sweep, pipeline_balance, na12878_run, stress,
+         codec_sweep_na12878)
 
 
 @pytest.fixture
