@@ -55,8 +55,10 @@ and 2^22 words as a rANS CRAM with the port's writer (depth cut for run
 time only), counts each through flagstat_file on the card (K1), by the
 fused host walker, K2 and K6 against the oracle, sums the rANS file's
 container ranges, runs the three container legs of multihost (BAM,
-BGZF SAM, CRAM) over two gloo worker processes, and runs na12878_run at
-1/8 scale through the CRAM container and the framed stream. Phase 4m
+BGZF SAM, CRAM) over two gloo worker processes, each on the card (each
+rank's column read by the range column readers, then K1) and by the
+fused host walkers, and runs na12878_run at 1/8 scale through the CRAM
+container and the framed stream. Phase 4m
 drives the last tools through their main(): stress at its defaults (K1,
 K3, K2 and K6 on random ragged sizes), codegen, alignment_study,
 codec_sweep_na12878 at 1/128 of NA12878, multihost_scaling over the
@@ -239,13 +241,16 @@ def check_kernels(max_err: dict) -> None:
               f"exactly (max_abs_err {max_err[mode]})")
 
 
-def check_host_library(build_seconds: float, readers_seconds: float) -> None:
-    """Phase 2b: the native host library and the readers built, and the
-    packed transpose is byte-identical to the numpy spec."""
+def check_host_library(build_seconds: float, readers_seconds: float,
+                       columns_seconds: float) -> None:
+    """Phase 2b: the native host library, the readers and the range
+    column readers built, and the packed transpose is byte-identical to
+    the numpy spec."""
     if native_lib.load() is None:
         raise RuntimeError(f"the native host library did not build:\n{native_lib.BUILD_ERROR}")
     if native_lib.load_readers() is None:
         raise RuntimeError(f"the native readers did not build:\n{native_lib.READERS_BUILD_ERROR}")
+    native_lib.columns()   # raises with the compiler's message
     gxx = subprocess.run(["g++", "--version"], capture_output=True, text=True,
                          check=True, timeout=60).stdout.splitlines()[0]
     header = ("the system <zstd.h>" if native_lib.ZSTD_ROUTE == "system"
@@ -254,6 +259,7 @@ def check_host_library(build_seconds: float, readers_seconds: float) -> None:
           f"{native_lib.ZSTD_ROUTE} ({header})")
     print(f"readers built in {readers_seconds:.2f} s; zlib: the system <zlib.h>, -lz; "
           f"inflate: {native_lib.DEFLATE_ROUTE}")
+    print(f"range column readers (flag_columns.cpp) built in {columns_seconds:.2f} s")
     sizes = (1, 65_537, 8 * GW - 4_321)
     for n in sizes:
         x = generate_flags(n, seed=n, full_range=True)
@@ -1132,7 +1138,8 @@ def drive_cram_path(na_words: np.ndarray, tmp: str, card: str) -> None:
     the port's writer, counts each through flagstat_file on the card
     (K1), by the fused host walker, K2 and K6, sums the rANS file's
     container ranges, runs the three container legs of multihost over
-    two gloo ranks, and runs na12878_run at 1/8 scale in both modes."""
+    two gloo ranks on the card and by the fused walkers, and runs
+    na12878_run at 1/8 scale in both modes."""
     n_min, n = CONTAINER_MIN_BAM_WORDS, CONTAINER_WORDS
     print(f"4l depth, cut for run time only: GZIP CRAM {n_min} words (1/8 of NA12878; the "
           f"writer is Python, gzip level 6, threaded over containers), rANS CRAM, realistic "
@@ -1179,10 +1186,13 @@ def drive_cram_path(na_words: np.ndarray, tmp: str, card: str) -> None:
         if not os.path.exists(files[leg]):
             made(f"{leg} for the legs", lambda: write(files[leg], words), files[leg])
     t0 = time.perf_counter()
-    # the first card call of a worker pays its context and module load:
-    # cram_warm is the CRAM leg's own time
+    # each leg on the card route (impl=None: each rank's column, K1) and
+    # by the fused host walkers (impl="native"); the first card call of a
+    # worker pays its context and module load, so every card leg runs
+    # twice and its _warm run is the leg's own time
     runs = [(leg, leg, path, {}) for leg, path in files.items()]
-    runs += [("cram_warm", "cram", rans, {}), ("cram_native", "cram", rans, {"impl": "native"})]
+    runs += [(f"{leg}_warm", leg, path, {}) for leg, path in files.items()]
+    runs += [(f"{leg}_native", leg, path, {"impl": "native"}) for leg, path in files.items()]
     ranks = run_ranks(CONTAINER_LEGS_WORKER, os.path.join(tmp, "rdv_legs"),
                       (json.dumps(runs),))
     wall = time.perf_counter() - t0
@@ -1192,13 +1202,15 @@ def drive_cram_path(na_words: np.ndarray, tmp: str, card: str) -> None:
         assert sorted(res["legs"]) == sorted(r[0] for r in runs), res
         for leg, got in res["legs"].items():
             assert (np.array(got["counters"], np.uint64) == ref).all(), (rank, leg, got)
-        # the CRAM leg counts its rank's column on the card, the others on the host
-        assert all((got["k1_launches"] > 0) == (leg in ("cram", "cram_warm"))
+        # every card leg counts its rank's column on the card (K1), and
+        # no fused host walker launches a kernel
+        assert all((got["k1_launches"] > 0) == (not leg.endswith("_native"))
                    for leg, got in res["legs"].items()), res["legs"]
-        print(f"[{card}] 4l rank {rank} of 2 (gloo): flagstat_multihost_bam, _bgzf_sam (host "
-              f"walkers), _cram (K1 on the card) and _cram impl=native = the oracle; walls "
-              f"(s): " + ", ".join(f"{leg} {got['wall_s']:.3f}"
-                                  for leg, got in res["legs"].items()))
+        print(f"[{card}] 4l rank {rank} of 2 (gloo): flagstat_multihost_bam, _bgzf_sam and "
+              f"_cram, each on the card (K1) and impl=native = the oracle; K1 launches "
+              + ", ".join(f"{leg} {got['k1_launches']}" for leg, got in res["legs"].items())
+              + "; walls (s): " + ", ".join(f"{leg} {got['wall_s']:.3f}"
+                                           for leg, got in res["legs"].items()))
     print(f"4l two-process legs: {wall:.2f} s wall for both workers, start-up included")
     os.remove(rans)   # phase 4m's multihost_scaling reuses the BAM and the BGZF SAM
 
@@ -1619,19 +1631,21 @@ def main(argv=None) -> int:
         load()
         return time.perf_counter() - t0
 
-    # the host library and the readers (g++) build while nvcc builds the kernels
-    with cf.ThreadPoolExecutor(2) as pool:
-        host_build = pool.submit(timed, native_lib.load)
-        readers_build = pool.submit(timed, native_lib.load_readers)
+    # the host library, the readers and the range column readers (g++)
+    # build while nvcc builds the kernels
+    with cf.ThreadPoolExecutor(3) as pool:
+        builds = [pool.submit(timed, load) for load in (native_lib.load,
+                                                        native_lib.load_readers,
+                                                        native_lib.load_columns)]
         t0 = time.perf_counter()
         path = cuda_build.build()
         cuda_build.load()
         print(f"built {path.name} in {time.perf_counter() - t0:.2f} s")
-        host_seconds, readers_seconds = host_build.result(), readers_build.result()
+        host_seconds, readers_seconds, columns_seconds = (b.result() for b in builds)
     for line in cuda_build.BUILD_LOG.splitlines():
         if line.endswith(".cu:") or "registers" in line or "spill" in line:
             print("  ptxas:", line.strip())
-    check_host_library(host_seconds, readers_seconds)
+    check_host_library(host_seconds, readers_seconds, columns_seconds)
 
     max_err = dict.fromkeys(K.LAUNCHES, 0)
     checks = {"3": check_kernels, "3b": check_pre_kernel, "3c": check_words_kernel,

@@ -21,8 +21,11 @@ route where the native readers did not build (``READ_ROUTE`` says which
 one the last read took; the Python route says so on standard error).
 The native walker (the port's copy of bam_reader.cpp, io/native_lib.py
 ``load_readers()``) inflates BGZF members on a thread pool and walks the
-records in order. The writer makes spec-conform files for tests and
-synthetic runs: minimal records (l_seq = 0) or 151 bp HiSeqX-weight ones.
+records in order; the range column reader (the port's own
+flag_columns.cpp, ``load_columns()``) reads the column of one
+inflated-byte range, for the multihost leg. The writer makes
+spec-conform files for tests and synthetic runs: minimal records
+(l_seq = 0) or 151 bp HiSeqX-weight ones.
 
 Counting differs from the JAX package on purpose: ``flagstat_bam``
 reads the column and counts it on the card (``impl=None``), on the CPU
@@ -314,6 +317,40 @@ def flagstat_bam_byte_range(path, byte_lo: int, byte_hi: int,
     return counters, int(got), int(start.value), int(end.value)
 
 
+def read_bam_flags_byte_range(path, byte_lo: int, byte_hi: int, threads: int = 0):
+    """FLAG column of one inflated-byte range of a BAM: the column twin
+    of ``flagstat_bam_byte_range`` (the range column reader
+    ``lfs_bam_flags_byte_range``, io/csrc/flag_columns.cpp), entered and
+    ended by the same arrival-exact resync walk. Returns (column uint16,
+    start, end), where (start, end) equal ``flagstat_bam_byte_range``'s
+    and the caller MUST check that they chain across ranges; or None
+    when the range could not be entered. The columns of ranges whose
+    endpoints chain concatenate to the file's column. Raises
+    RuntimeError when the range column readers did not build: there is
+    no host fallback."""
+    import ctypes
+
+    lib = native_lib.columns()
+    size = os.path.getsize(path)
+    if size == 0:
+        return np.zeros(0, dtype=np.uint16), 0, 0
+    mm = native_lib.map_sequential(path)
+    cap = lib.lfs_bam_flags_range_bound(mm.ctypes.data, size, byte_lo, byte_hi)
+    if cap < 0:
+        raise ValueError(f"BAM byte-range read failed (rc={cap})")
+    out = np.empty(cap, dtype=np.uint16)
+    start = ctypes.c_int64(-1)
+    end = ctypes.c_int64(-1)
+    got = lib.lfs_bam_flags_byte_range(
+        mm.ctypes.data, size, byte_lo, byte_hi, out.ctypes.data_as(ctypes.c_void_p), cap,
+        ctypes.byref(start), ctypes.byref(end), threads)
+    if got == -9:
+        return None
+    if got < 0:
+        raise ValueError(f"BAM byte-range read failed (rc={got})")
+    return out[:got], int(start.value), int(end.value)
+
+
 def flagstat_bam(path, threads: int = 0, impl: str | None = None, device=None):
     """samtools-flagstat counters straight from a BAM file.
 
@@ -332,5 +369,5 @@ def flagstat_bam(path, threads: int = 0, impl: str | None = None, device=None):
         if counters is not None:
             return counters
     elif impl is None:
-        impl = D.auto_impl(0, device)
+        D.device_impl(device)   # no card and no device: raise before reading
     return D.flagstats_u16(read_bam_flags(path, threads=threads), impl=impl, device=device)

@@ -898,7 +898,7 @@ def flagstat_cram_range(path, start: int, stop: int, threads: int = 0,
         if counters is not None:
             return counters
     elif impl is None:
-        impl = D.auto_impl(0, device)
+        D.device_impl(device)   # no card and no device: raise before reading
     return D.flagstats_u16(_read_range(path, start, stop, threads, "flagstat_cram_range"),
                            impl=impl, device=device)
 
@@ -1094,5 +1094,5 @@ def flagstat_cram(path, threads: int = 0, impl: str | None = None, device=None):
         if counters is not None:
             return counters
     elif impl is None:
-        impl = D.auto_impl(0, device)
+        D.device_impl(device)   # no card and no device: raise before reading
     return D.flagstats_u16(read_cram_flags(path, threads=threads), impl=impl, device=device)

@@ -2,7 +2,7 @@
 
 The port builds its own copies of the JAX package's C++ host sources,
 kept in ``io/csrc/`` byte for byte equal to ``libflagstats_tpu/io/native/``
-(tests/test_torch_native_sources.py), into two shared objects:
+(tests/test_torch_native_sources.py), into shared objects of their own:
 
 * the host library (``load()``): ``flagstats_io.cpp`` (the framed LZ4
   and Zstd block codecs, the parallel framed-stream decoder, the fused
@@ -22,13 +22,21 @@ kept in ``io/csrc/`` byte for byte equal to ``libflagstats_tpu/io/native/``
 * the perf counters (``load_perf()``): ``perf_events.cpp``, the
   ``perf_event_open`` counter groups that ``bench/perf_native.py``
   reads. It includes ``<linux/perf_event.h>``, so an image without that
-  header loses the counters and nothing else.
+  header loses the counters and nothing else;
+* the range column readers (``load_columns()``): ``flag_columns.cpp``,
+  the port's own file, which writes the FLAG column of a BAM
+  inflated-byte range or of a BGZF SAM member range (the column twins
+  of the readers' fused range walkers). It includes the copies of
+  ``bam_reader.cpp`` and ``sam_reader.cpp`` to reach their internal
+  range machinery, so it redefines their symbols and builds alone, with
+  a copy of ``flagstats_host.cpp`` that the included walkers call.
 
 g++ builds each into ``build/torch_host/``, keyed on a hash of the
 sources, the flags and the host tag, through a temp file and a rename,
 so a concurrent build never loads a half-written file. A loader
 returns None when its build fails and keeps the compiler's message in
-``BUILD_ERROR`` / ``READERS_BUILD_ERROR`` / ``PERF_BUILD_ERROR``:
+``BUILD_ERROR`` / ``READERS_BUILD_ERROR`` / ``PERF_BUILD_ERROR`` /
+``COLUMNS_BUILD_ERROR``:
 callers that must not fall back raise with it.
 
 Missing headers: where the system ``<zstd.h>`` compiles and ``-lzstd``
@@ -37,7 +45,8 @@ declarations in ``io/csrc/compat/zstd.h`` and links the runtime
 ``libzstd.so.1`` ("compat"). The readers link zlib (``-lz``).
 libdeflate, which inflates BGZF members faster than zlib, is linked
 where a probe compiles and links it ("libdeflate"), else the readers
-inflate with zlib ("zlib", ``-DLFS_NO_LIBDEFLATE``). ``ZSTD_ROUTE``
+inflate with zlib ("zlib", ``-DLFS_NO_LIBDEFLATE``); the range column
+readers take the same route. ``ZSTD_ROUTE``
 and ``DEFLATE_ROUTE`` say what the last build probes chose.
 """
 from __future__ import annotations
@@ -60,6 +69,9 @@ READER_SOURCES = (CSRC / "bam_reader.cpp", CSRC / "sam_reader.cpp", CSRC / "rans
 #: the readers' one local include (hashed into their build key)
 READER_HEADERS = (CSRC / "bgzf.h",)
 PERF_SOURCES = (CSRC / "perf_events.cpp",)
+COLUMNS_SOURCES = (CSRC / "flag_columns.cpp", CSRC / "flagstats_host.cpp")
+#: what flag_columns.cpp includes (hashed into its build key)
+COLUMNS_HEADERS = (CSRC / "bam_reader.cpp", CSRC / "sam_reader.cpp", CSRC / "bgzf.h")
 COMPAT_DIR = CSRC / "compat"
 BUILD_DIR = _HERE.parent.parent / "build" / "torch_host"
 CXX_FLAGS = ("-O3", "-march=native", "-std=c++17", "-shared", "-fPIC",
@@ -84,13 +96,17 @@ BUILD_ERROR = ""
 READERS_BUILD_ERROR = ""
 #: why the last ``load_perf()`` returned None ("" until one did)
 PERF_BUILD_ERROR = ""
+#: why the last ``load_columns()`` returned None ("" until one did)
+COLUMNS_BUILD_ERROR = ""
 
 _lib = None
 _readers = None
 _perf = None
+_columns = None
 _lock = threading.Lock()
 _readers_lock = threading.Lock()
 _perf_lock = threading.Lock()
+_columns_lock = threading.Lock()
 
 
 def _links(probe: str, libs: list[str]) -> bool:
@@ -166,6 +182,15 @@ def build_readers() -> Path:
                     ["-lz", *dlibs])
 
 
+def build_columns() -> Path:
+    """Compile the range column readers (``flag_columns.cpp``) unless
+    they exist; raises like ``build()``."""
+    global DEFLATE_ROUTE
+    DEFLATE_ROUTE, dflags, dlibs = _deflate_flags()
+    return _compile("libflagstats_columns", COLUMNS_SOURCES, COLUMNS_HEADERS, dflags,
+                    ["-lz", *dlibs])
+
+
 def load():
     """The bound library, built at first use, or None if it cannot be
     built or loaded (``BUILD_ERROR`` says why)."""
@@ -205,6 +230,29 @@ def load_perf():
             except (OSError, RuntimeError, AttributeError) as e:
                 PERF_BUILD_ERROR = f"{type(e).__name__}: {e}"
         return _perf
+
+
+def load_columns():
+    """The bound range column readers, built at first use, or None if
+    they cannot be built or loaded (``COLUMNS_BUILD_ERROR`` says why)."""
+    global _columns, COLUMNS_BUILD_ERROR
+    with _columns_lock:
+        if _columns is None and not COLUMNS_BUILD_ERROR:
+            try:
+                _columns = _bind_columns(ctypes.CDLL(str(build_columns())))
+            except (OSError, RuntimeError, AttributeError) as e:
+                COLUMNS_BUILD_ERROR = f"{type(e).__name__}: {e}"
+        return _columns
+
+
+def columns():
+    """The range column readers; raises, with ``COLUMNS_BUILD_ERROR``,
+    when they did not build (there is no host fallback for a range
+    column)."""
+    lib = load_columns()
+    if lib is None:
+        raise RuntimeError(f"the range column readers did not build: {COLUMNS_BUILD_ERROR}")
+    return lib
 
 
 def readers():
@@ -303,6 +351,22 @@ def _bind_readers(lib):
         ("lfs_rans4x8_decompress", i64, [vp, i64, vp, i64]),
         ("lfs_cram_flagstat_range", i64, [vp, i64, i64, i64, vp, i32, i64p]),
         ("lfs_cram_flagstat", i64, [vp, i64, vp, i32, i64p]),
+    ):
+        fn = getattr(lib, name)
+        fn.restype = res
+        fn.argtypes = args
+    return lib
+
+
+def _bind_columns(lib):
+    """Declare the range column readers' symbols (flag_columns.cpp)."""
+    i64, i32, vp = ctypes.c_int64, ctypes.c_int, ctypes.c_void_p
+    i64p = ctypes.POINTER(ctypes.c_int64)
+    for name, res, args in (
+        ("lfs_bam_flags_byte_range", i64, [vp, i64, i64, i64, vp, i64, i64p, i64p, i32]),
+        ("lfs_bam_flags_range_bound", i64, [vp, i64, i64, i64]),
+        ("lfs_bgzf_sam_flags_range", i64, [vp, i64, i64, i64, vp, i64, i32]),
+        ("lfs_bgzf_sam_range_bound", i64, [vp, i64, i64, i64]),
     ):
         fn = getattr(lib, name)
         fn.restype = res

@@ -14,7 +14,9 @@ native parser (the port's copy of sam_reader.cpp, io/native_lib.py
 ``load_readers()``); this module's pure-Python reader is the
 differential reference, and the route where the readers did not build
 (``READ_ROUTE`` says which one the last read took, and the Python route
-says so on standard error).
+says so on standard error). ``read_sam_flags_range`` reads the column
+of one BGZF member range with the range column reader (the port's own
+flag_columns.cpp, ``load_columns()``), for the multihost leg.
 
 Counting differs from the JAX package on purpose: ``flagstat_sam``
 reads the column and counts it on the card (``impl=None``), on the CPU
@@ -332,7 +334,7 @@ def flagstat_sam(path, threads: int = 0, impl: str | None = None, device=None):
         if counters is not None:
             return counters
     elif impl is None:
-        impl = D.auto_impl(0, device)
+        D.device_impl(device)   # no card and no device: raise before reading
     return D.flagstats_u16(read_sam_flags(path, threads=threads), impl=impl, device=device)
 
 
@@ -350,33 +352,41 @@ def _flagstat_bgzf_sam_parallel(path, threads: int = 0, member_start: int = 0,
     distributed leg gets the same parallelism. Returns None (the caller
     takes the single fused walker) when the input is not BGZF or the
     range has too few members for the split to pay."""
-    import concurrent.futures as cf
-
-    from .codec import shard_block_ranges
-
-    ncpu = threads or os.cpu_count() or 4
-    shards = max(1, min(8, ncpu // 2))
     try:
         n_members = bgzf_member_count(path)
     except ValueError:
         return None                    # gzip-but-not-BGZF etc.
     if member_stop is None:
         member_stop = n_members
-    span = member_stop - member_start
-    if shards < 2 or span < 16 * shards:
+    parts = _split_over_ranges(path, member_start, member_stop, threads,
+                               lambda a, b, per: flagstat_sam_range(path, a, b, threads=per))
+    if parts is None:
         return None                    # too small: split overhead loses
-    # prefetch once (the range walkers map the file without WILLNEED)
-    native_lib.map_sequential(path)
-    per = max(2, ncpu // shards)
-    ranges = [(member_start + a, member_start + b)
-              for a, b in shard_block_ranges(span, shards)]
-    with cf.ThreadPoolExecutor(shards) as pool:
-        parts = list(pool.map(
-            lambda r: flagstat_sam_range(path, r[0], r[1], threads=per), ranges))
     total = np.zeros_like(parts[0])
     for p in parts:
         total += p
     return total
+
+
+def _split_over_ranges(path, member_start: int, member_stop: int, threads: int, walk):
+    """``walk(a, b, threads)`` over the in-process sub-ranges of one
+    member range, run at once, in order; None when the range is too
+    small for the split to pay (fewer than 16 members a sub-range)."""
+    import concurrent.futures as cf
+
+    from .codec import shard_block_ranges
+
+    ncpu = threads or os.cpu_count() or 4
+    shards = max(1, min(8, ncpu // 2))
+    span = member_stop - member_start
+    if shards < 2 or span < 16 * shards:
+        return None
+    # prefetch once (the range walkers map the file without WILLNEED)
+    native_lib.map_sequential(path)
+    per = max(2, ncpu // shards)
+    ranges = [(member_start + a, member_start + b) for a, b in shard_block_ranges(span, shards)]
+    with cf.ThreadPoolExecutor(shards) as pool:
+        return list(pool.map(lambda r: walk(r[0], r[1], per), ranges))
 
 
 def bgzf_member_count(path) -> int:
@@ -416,6 +426,45 @@ def flagstat_sam_range(path, member_start: int, member_stop: int,
     if got < 0:
         raise ValueError(f"BGZF SAM range count failed (rc={got})")
     return counters
+
+
+def _sam_column_range(path, member_start: int, member_stop: int, threads: int) -> np.ndarray:
+    """One call of the range column reader ``lfs_bgzf_sam_flags_range``."""
+    import ctypes
+
+    lib = native_lib.columns()
+    size = os.path.getsize(path)
+    if size == 0 or member_start >= member_stop:
+        return np.zeros(0, dtype=np.uint16)
+    mm = np.memmap(path, dtype=np.uint8, mode="r")
+    cap = lib.lfs_bgzf_sam_range_bound(mm.ctypes.data, size, member_start, member_stop)
+    got = cap
+    if cap >= 0:
+        out = np.empty(cap, dtype=np.uint16)
+        got = lib.lfs_bgzf_sam_flags_range(mm.ctypes.data, size, member_start, member_stop,
+                                           out.ctypes.data_as(ctypes.c_void_p), cap, threads)
+    if got < 0:
+        raise ValueError(f"BGZF SAM range read failed (rc={got})")
+    return out[:got]
+
+
+def read_sam_flags_range(path, member_start: int, member_stop: int,
+                         threads: int = 0) -> np.ndarray:
+    """FLAG column of the lines owned by one BGZF member range of a
+    .sam.gz: the column twin of ``flagstat_sam_range`` (the range column
+    reader ``lfs_bgzf_sam_flags_range``, io/csrc/flag_columns.cpp), with
+    the same exact line ownership at the range edges, so the columns of
+    ranges that tile the members concatenate to the file's column. A
+    large range is split over in-process sub-ranges read at once, as
+    ``_flagstat_bgzf_sam_parallel`` splits its count, and their columns
+    are joined in order. Non-BGZF input raises ValueError (rc -6), as
+    ``flagstat_sam_range`` does; RuntimeError when the range column
+    readers did not build (there is no host fallback)."""
+    parts = _split_over_ranges(path, member_start, member_stop, threads,
+                               lambda a, b, per: _sam_column_range(path, a, b, per))
+    if parts is None:
+        return _sam_column_range(path, member_start, member_stop, threads)
+    return np.concatenate(parts)
 
 
 def read_binary(path, mmap: bool = True) -> np.ndarray:

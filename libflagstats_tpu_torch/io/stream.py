@@ -243,7 +243,7 @@ def flagstat_stream(path, codec: str | int = "lz4", impl: str | None = None,
     so a ``"sums"`` checkpoint holds int32-range values the JAX package
     can resume (and vice versa)."""
     if impl is None:
-        impl = D.auto_impl(0, device)
+        impl = D.device_impl(device)
     if impl == "native":
         return _flagstat_stream_native(path, codec, threads, checkpoint, timer)
     if impl not in DEVICE_IMPLS:

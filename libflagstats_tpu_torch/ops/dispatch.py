@@ -12,7 +12,16 @@ libflagstats.h:2977-3070). The backend probe is
 
 The host tiers (``"numpy"``, ``"native"``) are chosen by name. No
 crossover between them and the card has been measured on the H100, so
-the entry points do not switch to the host by size.
+the entry points do not switch to the host by size. The one size tier
+is that of a call that asked for the CPU: below ``TORCH_MIN_CPU`` words
+it gets ``"numpy"`` (the counterpart of the JAX package's
+``XLA_MIN_CPU``). Its default, 0, keeps the torch tier at every size;
+``tools/crossover_sweep --device cpu --write`` measures the crossover
+into the port's calibration file (``calibration.py``), which
+``_apply_calibration()`` reads at import. A call on the card never
+reads a threshold. ``device_impl`` is the device tier alone, for the
+paths that need one (the sharded and multihost counts, the stream, set
+algebra) and as the guard of the file readers.
 
 No shape bucketing: the TPU path padded to a ladder of shapes to bound
 XLA recompiles, and a CUDA kernel does not recompile per shape. The
@@ -67,12 +76,36 @@ POSPOPCNT_IMPLS = {
 #: the kernel far from wrapping. Module-level so tests can monkeypatch it.
 DEVICE_WORD_CAP = 0x7FFFFFFF
 
+#: below this many words a call that asked for the CPU counts with
+#: ``"numpy"``, from it with ``"torch"`` (0: torch at every size until a
+#: calibration file says otherwise; calibration.py)
+TORCH_MIN_CPU = 0
+#: the same for ``pospopcnt_u16``
+POSPOPCNT_TORCH_MIN_CPU = 0
 
-def auto_impl(n_len: int, device=None) -> str:
-    """The flagstat tier for one call of ``n_len`` words: ``"torch"``
-    when ``device`` is the CPU, else ``"cuda"`` at every size. With no
-    CUDA device and no ``device`` asked for, raises: the entry points
-    count on the card unless the caller asks for the CPU."""
+
+def _apply_calibration() -> list[str]:
+    """Override the thresholds above from the port's calibration file
+    (written by ``tools/crossover_sweep --device cpu --write``; schema in
+    calibration.py). Returns the names applied. Runs at import; call
+    again after the file changed."""
+    from ..calibration import load_thresholds
+
+    applied = []
+    for name, value in load_thresholds().items():
+        globals()[name] = value
+        applied.append(name)
+    return applied
+
+
+_CALIBRATED = _apply_calibration()
+
+
+def device_impl(device=None) -> str:
+    """The device tier: ``"torch"`` when ``device`` is the CPU, else
+    ``"cuda"``. With no CUDA device and no ``device`` asked for, raises:
+    the entry points count on the card unless the caller asks for the
+    CPU."""
     if device is not None:
         return "torch" if torch.device(device).type == "cpu" else "cuda"
     if torch.cuda.is_available():
@@ -83,10 +116,20 @@ def auto_impl(n_len: int, device=None) -> str:
         "or impl='numpy' for a column in memory)")
 
 
+def auto_impl(n_len: int, device=None) -> str:
+    """The flagstat tier for one call of ``n_len`` words: ``"cuda"`` at
+    every size on the card; on the CPU (``device="cpu"``) ``"numpy"``
+    below ``TORCH_MIN_CPU`` words, else ``"torch"``. Raises as
+    ``device_impl`` does."""
+    impl = device_impl(device)
+    return "numpy" if impl == "torch" and n_len < TORCH_MIN_CPU else impl
+
+
 def pospopcnt_auto_impl(n_len: int, device=None) -> str:
     """The pospopcnt tier for one call of ``n_len`` words (the flagstat
-    rule)."""
-    return auto_impl(n_len, device)
+    rule, with ``POSPOPCNT_TORCH_MIN_CPU``)."""
+    impl = device_impl(device)
+    return "numpy" if impl == "torch" and n_len < POSPOPCNT_TORCH_MIN_CPU else impl
 
 
 def _target_device(impl: str, device, words: torch.Tensor) -> torch.device:

@@ -155,7 +155,7 @@ def _count(a, b, op: str, impl: str | None, device) -> int:
     if b is not None and lanes[0].numel() != lanes[1].numel():
         raise ValueError("bitmaps must have equal size")
     if impl is None:
-        impl = D.auto_impl(lanes[0].numel(), D._where(lanes[0], device))
+        impl = D.device_impl(D._where(lanes[0], device))
     if impl not in SETOP_IMPLS:
         raise ValueError(f"unknown impl {impl!r}; expected one of {SETOP_IMPLS}")
     if lanes[0].numel() == 0:

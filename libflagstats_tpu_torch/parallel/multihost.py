@@ -18,17 +18,19 @@ counter and word count stays below 2^63, so int64 is exact: the JAX
 package's (lo, hi) uint32 pairs, which guarded against JAX's silent
 int64 -> int32 downcast, are not needed here.
 
-Of the three container legs, ``flagstat_multihost_cram`` counts on the
-card as the single-file path does: each rank reads the FLAG column of
-its container range and counts it on its device (``impl="native"``
-names the fused range walker). ``flagstat_multihost_bgzf_sam`` and
-``_bam`` are host walkers, as in the JAX package: each rank runs the
-fused range walker of the native readers over its shard and only the 32
-counters cross ranks. No column reader exists for a BAM or BGZF SAM
-byte range, so these two do not count on the card (ROADMAP, Decisions).
-A local ``ValueError`` reaches the ranks' exchange as ok=0 before
-anything is raised: the BAM leg then falls back, the CRAM and BGZF SAM
-legs raise on every rank together, so no rank is left waiting.
+The three container legs count on the card as the single-file path
+does: each rank reads the FLAG column of its range of the file (a BGZF
+SAM member range, a BAM inflated-byte range, a CRAM container range)
+and counts it on its device; the BGZF SAM and BAM legs read with the
+range column readers (io/csrc/flag_columns.cpp) and count through
+``flagstat_multihost``, so the derived pass total is applied once,
+after the merge. With no card and no ``device`` every rank raises
+before it reads. ``impl="native"`` names the fused host range walkers
+of the JAX package's legs, and only the 32 counters cross ranks. A
+local ``ValueError`` reaches the ranks' exchange as ok=0 before anything
+is raised or counted: the BAM leg then falls back to rank 0 counting
+the whole file, the CRAM and BGZF SAM legs raise on every rank
+together, so no rank is left waiting.
 """
 from __future__ import annotations
 
@@ -151,11 +153,11 @@ def flagstat_multihost(local_flags, total_words: int | None = None,
     must be >= this rank's shard. No word is padded here (the kernels
     mask their edges), so it changes no count. ``device``: where this
     rank counts (default: its current CUDA device); ``impl``: a sharded
-    impl, or None for ``ops.dispatch.auto_impl`` on that device."""
+    impl, or None for ``ops.dispatch.device_impl`` of that device."""
     local = D._validate_u16(local_flags)
     dev = _local_device(device)
     if impl is None:
-        impl = D.auto_impl(len(local), dev)
+        impl = D.device_impl(dev)
     if total_words is None:
         # the true local sizes: counter 9 is derived as total_words -
         # n_fail, so pad words in the sum would inflate the pass total
@@ -191,7 +193,7 @@ def flagstat_multihost_file(path, codec: str | int = "lz4", impl: str | None = N
 
     ``impl="native"``, asked for by name: each rank runs the fused C++
     decode+count over its byte range, and only the 32 counters cross
-    processes. ``impl=None`` counts on the device (ops.dispatch.auto_impl)."""
+    processes. ``impl=None`` counts on the device (ops.dispatch.device_impl)."""
     frames = C.scan_frames(path)
     size, rank = _world()
     ranges = C.shard_block_ranges(len(frames), size)
@@ -206,46 +208,58 @@ def flagstat_multihost_file(path, codec: str | int = "lz4", impl: str | None = N
                               pad_to_words=max(words), device=device)
 
 
-def _agreed(local, err: ValueError | None, leg: str) -> np.ndarray:
-    """The counters summed over ranks once every rank's local walk is
-    known to have succeeded. A rank that failed (``err``) sends ok=0
-    instead of raising, so the others are not left waiting in a
-    collective; then every rank raises, the failed one with its own
-    error."""
+def _agree(err: ValueError | None, leg: str) -> None:
+    """Return once every rank's local step is known to have succeeded. A
+    rank that failed (``err``) sends ok=0 instead of raising, so the
+    others are not left waiting in a collective; then every rank
+    raises, the failed one with its own error."""
     failed = np.flatnonzero(_allgather_i64(np.array([err is not None]))[:, 0])
     if failed.size:
         if err is not None:
             raise err
         raise ValueError(f"{leg}: the walk failed on rank(s) {failed.tolist()}")
-    return _global_counter_sum(local)
 
 
-def flagstat_multihost_bgzf_sam(path, n_threads: int = 0) -> np.ndarray:
+def flagstat_multihost_bgzf_sam(path, n_threads: int = 0, impl: str | None = None,
+                                device=None) -> np.ndarray:
     """Multi-process flagstat of one BGZF-compressed SAM (`bgzip x.sam`).
 
     Each rank scans the BGZF member chain (headers only, no inflate) and
-    fused-counts its contiguous member range (parallel inflate, line
-    parse and the host count; line ownership is exact at range
-    boundaries, io/csrc/sam_reader.cpp bgzf_sam_walk), split again over
-    in-process range walkers where the range is large enough; only the
-    32 counters cross ranks. Inflate is the bound, so P hosts multiply
-    inflate capacity."""
-    from ..io.samio import _flagstat_bgzf_sam_parallel, bgzf_member_count, flagstat_sam_range
+    takes its contiguous member range; line ownership is exact at range
+    boundaries (io/csrc/sam_reader.cpp bgzf_sam_walk). ``impl=None``
+    reads the range's FLAG column (io/samio.read_sam_flags_range, split
+    again over in-process sub-ranges where the range is large enough)
+    and counts it on ``device`` through ``flagstat_multihost`` (default:
+    the card; with no card and no ``device`` every rank raises before
+    reading). ``impl="native"``: the fused host range walkers count the
+    range and only the 32 counters cross ranks. Errors are agreed on
+    before anything is counted."""
+    from ..io.samio import (_flagstat_bgzf_sam_parallel, bgzf_member_count,
+                            flagstat_sam_range, read_sam_flags_range)
 
+    if impl is None:
+        impl = D.device_impl(device)
     size, rank = _world()
     start, stop = C.shard_block_ranges(bgzf_member_count(path), size)[rank]
     local, err = None, None
     try:
-        local = _flagstat_bgzf_sam_parallel(path, threads=n_threads, member_start=start,
-                                            member_stop=stop)
-        if local is None:
-            local = flagstat_sam_range(path, start, stop, threads=n_threads)
+        if impl == "native":
+            local = _flagstat_bgzf_sam_parallel(path, threads=n_threads, member_start=start,
+                                                member_stop=stop)
+            if local is None:
+                local = flagstat_sam_range(path, start, stop, threads=n_threads)
+        else:
+            local = read_sam_flags_range(path, start, stop, threads=n_threads)
     except ValueError as e:
         err = e
-    return _agreed(local, err, "flagstat_multihost_bgzf_sam")
+    _agree(err, "flagstat_multihost_bgzf_sam")
+    if impl == "native":
+        return _global_counter_sum(local)
+    return flagstat_multihost(local, impl=impl, device=device)
 
 
-def flagstat_multihost_bam(path, n_threads: int = 0) -> np.ndarray:
+def flagstat_multihost_bam(path, n_threads: int = 0, impl: str | None = None,
+                           device=None) -> np.ndarray:
     """Multi-process flagstat of one BAM.
 
     BAM records are self-delimited with no resync marker, so each rank
@@ -253,37 +267,54 @@ def flagstat_multihost_bam(path, n_threads: int = 0) -> np.ndarray:
     (io/csrc/bam_reader.cpp, the machinery of the single-host
     lfs_bam_flagstat_parallel): rank p walks [total*p/P, total*(p+1)/P)
     from the first structurally validated record boundary and reports
-    where its chain landed. The gathered (start, end) endpoints must
-    stitch exactly: end_p == start_{p+1} and the last rank's end is the
-    end of the inflated stream (rank 0's start is the header end). Any
-    break, or a failed resync, falls back to rank 0 counting the whole
-    file with the fused host walker (``flagstat_bam(impl="native")``)
-    while the rest add zeros, so the global counters are exact either
-    way. Only the counters and the endpoint pairs cross ranks."""
-    from ..io.bamio import bam_raw_size, flagstat_bam, flagstat_bam_byte_range
+    where its chain landed. ``impl=None`` reads the range's FLAG column
+    (io/bamio.read_bam_flags_byte_range) to count it on ``device``
+    (default: the card; with no card and no ``device`` every rank
+    raises before reading); ``impl="native"`` fused-counts the range on
+    the host. Every rank then takes part in the same collectives, in
+    order: (1) the allgather of (ok, start, end); (2) the chain check:
+    end_p == start_{p+1}, the last rank's end is the end of the
+    inflated stream; (3) one count over ranks, ``flagstat_multihost``
+    of the columns (``_global_counter_sum`` of the native counters).
+    Any break, or a failed resync, falls back to rank 0 reading the
+    whole file (``read_bam_flags``; ``flagstat_bam(impl="native")`` for
+    ``impl="native"``) while the rest pass nothing, so the global
+    counters are exact either way; an error of that read is agreed on
+    before (3)."""
+    from ..io.bamio import (bam_raw_size, flagstat_bam, flagstat_bam_byte_range,
+                            read_bam_flags, read_bam_flags_byte_range)
 
+    if impl is None:
+        impl = D.device_impl(device)
+    native = impl == "native"
     total = bam_raw_size(path)
     size, rank = _world()
     lo, hi = total * rank // size, total * (rank + 1) // size
     try:
-        res = flagstat_bam_byte_range(path, lo, hi, threads=n_threads)
+        res = (flagstat_bam_byte_range(path, lo, hi, threads=n_threads) if native
+               else read_bam_flags_byte_range(path, lo, hi, threads=n_threads))
     except ValueError:
         # a local error must still reach the allgather below as ok=0:
         # raising here would leave the other ranks hung in the collective
         res = None
-    if res is None:
-        ok, counters, start, end = 0, np.zeros(F.N_COUNTERS, np.uint64), 0, 0
-    else:
-        counters, _, start, end = res
-        ok = 1
+    empty = np.zeros(F.N_COUNTERS, np.uint64) if native else np.zeros(0, np.uint16)
+    ok, local, start, end = (0, empty, 0, 0) if res is None else (1, res[0], res[-2], res[-1])
     meta = _allgather_i64(np.array([ok, start, end], dtype=np.int64))
     chain_ok = bool((meta[:, 0] == 1).all()) and meta[size - 1, 2] == total and \
         all(meta[p, 2] == meta[p + 1, 1] for p in range(size - 1))
     if not chain_ok:
-        counters = (np.asarray(flagstat_bam(path, threads=n_threads, impl="native"),
-                               dtype=np.uint64)
-                    if rank == 0 else np.zeros(F.N_COUNTERS, np.uint64))
-    return _global_counter_sum(counters)
+        local, err = empty, None
+        if rank == 0:
+            try:
+                local = (np.asarray(flagstat_bam(path, threads=n_threads, impl="native"),
+                                    dtype=np.uint64) if native
+                         else read_bam_flags(path, threads=n_threads))
+            except ValueError as e:
+                err = e
+        _agree(err, "flagstat_multihost_bam")
+    if native:
+        return _global_counter_sum(local)
+    return flagstat_multihost(local, impl=impl, device=device)
 
 
 def flagstat_multihost_cram(path, n_threads: int = 0, impl: str | None = None,
@@ -301,7 +332,7 @@ def flagstat_multihost_cram(path, n_threads: int = 0, impl: str | None = None,
     from ..io.cramio import data_container_count, flagstat_cram_range
 
     if impl is None:
-        impl = D.auto_impl(0, device)
+        D.device_impl(device)   # no card and no device: raise before reading
     size, rank = _world()
     start, stop = C.shard_block_ranges(data_container_count(path), size)[rank]
     local, err = None, None
@@ -310,7 +341,8 @@ def flagstat_multihost_cram(path, n_threads: int = 0, impl: str | None = None,
                                     device=device)
     except ValueError as e:
         err = e
-    return _agreed(local, err, "flagstat_multihost_cram")
+    _agree(err, "flagstat_multihost_cram")
+    return _global_counter_sum(local)
 
 
 def scaling_sweep(n_words: int = 1 << 24, impl: str | None = None, device_counts=None,
@@ -329,7 +361,7 @@ def scaling_sweep(n_words: int = 1 << 24, impl: str | None = None, device_counts
 
     devs = data_devices(devices)
     if impl is None:
-        impl = D.auto_impl(n_words, devs[0])
+        impl = D.device_impl(devs[0])
     if device_counts is None:
         device_counts = [d for d in (1, 2, 4, 8, 16, 32) if d <= len(devs)]
     x_host = generate_flags(n_words, seed=0, full_range=True)

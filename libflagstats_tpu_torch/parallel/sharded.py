@@ -113,14 +113,14 @@ def flagstat_sharded(x, devices=None, impl: str | None = None,
 
     ``devices``: the devices to shard over, one shard per entry (entries
     may repeat; default every CUDA device). ``impl``: one of
-    SHARDED_IMPLS; None follows ``ops.dispatch.auto_impl`` on the first
+    SHARDED_IMPLS; None follows ``ops.dispatch.device_impl`` of the first
     device. ``report=True`` counts the 21 report streams on ``"cuda"``
     and ``"cuda_pre"`` (only flags.REPORT_COUNTERS are kept); the other
     impls count all 32 counters either way."""
     arr = D._validate_u16(x)   # the lossless-cast rules of flagstats_u16
     devs = data_devices(devices)
     if impl is None:
-        impl = D.auto_impl(len(arr), devs[0])
+        impl = D.device_impl(devs[0])
     _check_impl(impl)
     total, fail = sharded_sums(as_words(arr), devs, impl, report)
     return assemble_counters(total, fail, len(arr)).cpu().numpy().astype(np.uint64)

@@ -15,16 +15,28 @@ sweep takes the same measurements for the port, per size:
 It prints a TSV and the sizes from which each tier wins. K1 runs at
 every size: the kernel masks its own edges. ``--pospopcnt`` sweeps the
 positional-popcount tiers instead (host per-bit count, native, torch,
-K5). The port's ``auto_impl`` has no size tiers (the card at every
-size), so nothing is written to a calibration file: the sweep reports.
+K5).
+
+``--write``, with ``--device cpu``, records the one crossover the
+port's dispatch reads: ``TORCH_MIN_CPU`` (``POSPOPCNT_TORCH_MIN_CPU``
+with ``--pospopcnt``), the smallest swept size from which the torch
+tier's single-call wall beats numpy's at every larger swept size, or
+the disabled sentinel 2^62 when torch does not win at the largest. It
+goes into the port's calibration file (calibration.py) with its
+provenance: date, backend, the card as ``nvidia-smi`` names it, the
+median wall-minus-kernel gap and the tool. A call on the card reads no
+threshold, so ``--write`` without ``--device cpu`` is refused.
 
 Run on the card:
   python -m libflagstats_tpu_torch.tools.crossover_sweep [--pospopcnt] [sizes ...]
-Exits 1 with one line when there is no card.
+  python -m libflagstats_tpu_torch.tools.crossover_sweep --device cpu --write [--pospopcnt]
+Exits 1 with one line when there is no card and no ``--device cpu``.
 """
 from __future__ import annotations
 
 import argparse
+import datetime
+import subprocess
 import sys
 import time
 
@@ -133,18 +145,93 @@ def run(sizes=SIZES, pospopcnt: bool = False, device=None) -> dict:
     return {"rows": rows, "suggested": suggested, "lines": lines}
 
 
+#: the threshold value that disables a tier: torch never won in the range
+DISABLED = 1 << 62
+
+
+def torch_min(rows) -> int | None:
+    """The smallest swept size from which the torch wall (column 3)
+    beats numpy's (column 1) at every larger swept size; None when it
+    does not win at the largest."""
+    found = None
+    for r in reversed(sorted(rows)):
+        if not r[3] < r[1]:
+            break
+        found = r[0]
+    return found
+
+
+def card() -> str:
+    """The card as ``nvidia-smi --query-gpu=name,power.limit
+    --format=csv,noheader`` prints it (first line), or "none"."""
+    try:
+        r = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                            "--format=csv,noheader"], capture_output=True, text=True,
+                           timeout=60)
+    except (OSError, subprocess.TimeoutExpired):
+        return "none"
+    lines = r.stdout.strip().splitlines()
+    return lines[0].strip() if r.returncode == 0 and lines else "none"
+
+
+def _rtt_ms(rows, wall_col: int, kern_col: int) -> float:
+    """Median wall-minus-kernel gap over the measured rows: the per-call
+    cost the single-call crossover prices in."""
+    gaps = sorted((r[wall_col] - r[kern_col]) * 1e3 for r in rows
+                  if r[wall_col] == r[wall_col] and r[kern_col] == r[kern_col])
+    return gaps[len(gaps) // 2] if gaps else float("nan")
+
+
+def _provenance(backend: str, rtt_ms: float | None) -> dict:
+    prov = {"date": datetime.date.today().isoformat(), "backend": backend,
+            "card": card(), "tool": "crossover_sweep"}
+    if rtt_ms is not None and rtt_ms == rtt_ms:
+        prov["dispatch_rtt_ms"] = round(rtt_ms, 3)
+    return prov
+
+
+def _write_calibration(thresholds: dict, backend: str, rtt_ms: float | None) -> None:
+    """Write the thresholds that are not None, with their provenance; a
+    dict of Nones leaves the file untouched."""
+    from ..calibration import write_thresholds
+
+    thresholds = {k: v for k, v in thresholds.items() if v is not None}
+    if not thresholds:
+        print("# --write: no crossover measured in this size range; calibration file "
+              "left untouched")
+        return
+    path = write_thresholds(thresholds, _provenance(backend, rtt_ms))
+    print(f"# wrote {sorted(thresholds)} to {path} (ops/dispatch.py applies it at import)")
+
+
+def write(rows, pospopcnt: bool) -> None:
+    """``--write``: the measured numpy -> torch crossover of a CPU sweep,
+    or the disabled sentinel when torch never wins in the range."""
+    found = torch_min(rows)
+    name = "POSPOPCNT_TORCH_MIN_CPU" if pospopcnt else "TORCH_MIN_CPU"
+    _write_calibration({name: DISABLED if found is None else found}, "cpu",
+                       _rtt_ms(rows, 3, 4))
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(prog="crossover_sweep")
     ap.add_argument("sizes", type=int, nargs="*", default=SIZES,
                     help="word counts; 1Ki..64Mi in 4x steps by default")
     ap.add_argument("--pospopcnt", action="store_true")
     ap.add_argument("--device", default=None, help="'cpu' times the torch tier on the CPU")
+    ap.add_argument("--write", action="store_true",
+                    help="with --device cpu: record the numpy -> torch crossover in the "
+                         "port's calibration file")
     args = ap.parse_args(argv)
+    if args.write and args.device != "cpu":
+        ap.error("--write records the tier of calls that ask for the CPU: add --device cpu")
     try:
-        run(args.sizes, args.pospopcnt, args.device)
+        res = run(args.sizes, args.pospopcnt, args.device)
     except RuntimeError as e:  # no card: one line, no fallback
         print(f"crossover_sweep: error: {e}", file=sys.stderr)
         return 1
+    if args.write:
+        write(res["rows"], args.pospopcnt)
     return 0
 
 

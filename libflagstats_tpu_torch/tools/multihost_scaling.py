@@ -1,9 +1,10 @@
 """Real-process scaling of the native host legs of multihost.
 
 The port of tools/multihost_scaling.py: ``flagstat_multihost_file``
-(framed LZ4, ``impl="native"``), ``flagstat_multihost_bgzf_sam`` and
-``flagstat_multihost_bam`` (host range walkers; ROADMAP, Decisions)
-timed at three worlds of fresh processes on one host, and the words/s
+(framed LZ4), ``flagstat_multihost_bgzf_sam`` and
+``flagstat_multihost_bam``, each with ``impl="native"`` (the fused host
+range walkers; the legs' default counts on the card) timed at three
+worlds of fresh processes on one host, and the words/s
 and efficiency each gives:
 
   constant silicon: 1 process x 2 threads against 2 processes x 2
@@ -66,8 +67,8 @@ def run(kind, path):
         return multihost.flagstat_multihost_file(path, codec="lz4", impl="native",
                                                  n_threads=threads)
     if kind == "bam":
-        return multihost.flagstat_multihost_bam(path, n_threads=threads)
-    return multihost.flagstat_multihost_bgzf_sam(path, n_threads=threads)
+        return multihost.flagstat_multihost_bam(path, n_threads=threads, impl="native")
+    return multihost.flagstat_multihost_bgzf_sam(path, n_threads=threads, impl="native")
 
 legs = {}
 for kind, path in files:

@@ -237,7 +237,7 @@ def run(scale: int = 1, codec: str = "lz4", level: int = 1, workdir=None,
     card and no ``device``, a card impl (None or ``"cuda*"``) raises
     before anything is made."""
     if impl is None or impl.startswith("cuda"):
-        D.auto_impl(0, device)
+        D.device_impl(device)
     wd = Path(workdir or os.path.join(tempfile.gettempdir(), "na12878"))
     wd.mkdir(parents=True, exist_ok=True)
     if container:

@@ -120,10 +120,12 @@ def test_import_pulls_in_no_jax():
         "import libflagstats_tpu_torch.tools.codec_sweep_na12878\n"
         "import libflagstats_tpu_torch.tools.multihost_scaling\n"
         "import libflagstats_tpu_torch.bench.perf_native, libflagstats_tpu_torch.graft_entry\n"
+        "import libflagstats_tpu_torch.calibration\n"
         "from libflagstats_tpu_torch import flagstat_file, cli\n"
         "from libflagstats_tpu_torch.io import sniff_format, read_flags_auto, native_lib\n"
         "assert native_lib.load_readers() is not None, native_lib.READERS_BUILD_ERROR\n"
         "assert native_lib.load_perf() is not None, native_lib.PERF_BUILD_ERROR\n"
+        "assert native_lib.load_columns() is not None, native_lib.COLUMNS_BUILD_ERROR\n"
         "import runpy; runpy.run_path('chip_smoke.py')  # its imports, no main()\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m.split('.')[0] in ('jax', 'jaxlib', 'libflagstats_tpu'))\n"

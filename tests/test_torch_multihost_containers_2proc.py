@@ -2,13 +2,15 @@
 worker processes join a gloo process group through a file://
 rendezvous and count a BGZF SAM by member range, a BAM by inflated-byte
 range (one whose shard chain holds, one whose chain breaks so that rank
-0 counts the whole file alone) and a CRAM by container range (its
-column counted by the card route's plain version on the CPU, and by the
-fused walker), each checked against flagstat_numpy; a BGZF SAM and a
-CRAM corrupt only in rank 1's range make both ranks raise, neither
-hang. In this process, outside any group, the same legs equal the JAX
-package's (libflagstats_tpu/parallel/multihost.py). The workers import
-no jax. Exact."""
+0 counts the whole file alone) and a CRAM by container range, each on
+the card route (each rank's column read, then counted by the card
+route's plain version on the CPU) and by the fused host walkers, each
+checked against flagstat_numpy; a BGZF SAM and a CRAM corrupt only in
+rank 1's range make both ranks raise, neither hang. In this process,
+outside any group, the same legs equal the JAX package's
+(libflagstats_tpu/parallel/multihost.py), and with no card and no
+device every leg raises before it reads. The workers import no jax.
+Exact."""
 import concurrent.futures as cf
 import json
 import os
@@ -42,20 +44,32 @@ from libflagstats_tpu_torch.parallel import multihost as M
 rdv, rank, files, out = sys.argv[1], int(sys.argv[2]), json.loads(sys.argv[3]), sys.argv[4]
 assert M.initialize(init_method="file://" + rdv, world_size=2, rank=rank, backend="gloo")
 fallbacks = []
-whole = bamio.flagstat_bam
 
 
-def counted(path, *a, **k):
-    fallbacks.append(str(path))
-    return whole(path, *a, **k)
+def counted(name):
+    whole = getattr(bamio, name)
+
+    def count(path, *a, **k):
+        fallbacks.append([name, str(path)])
+        return whole(path, *a, **k)
+    setattr(bamio, name, count)
 
 
-bamio.flagstat_bam = counted
+counted("flagstat_bam")     # the fused route's whole-file fallback
+counted("read_bam_flags")   # the card route's
 legs = {
-    "sam_split": M.flagstat_multihost_bgzf_sam(files["sam.gz"], n_threads=4),
-    "sam_one_walker": M.flagstat_multihost_bgzf_sam(files["sam.gz"], n_threads=1),
-    "bam": M.flagstat_multihost_bam(files["bam"], n_threads=2),
-    "bam_broken": M.flagstat_multihost_bam(files["broken.bam"], n_threads=2),
+    "sam_split": M.flagstat_multihost_bgzf_sam(files["sam.gz"], n_threads=4, device="cpu"),
+    "sam_one_walker": M.flagstat_multihost_bgzf_sam(files["sam.gz"], n_threads=1,
+                                                    device="cpu"),
+    "sam_split_native": M.flagstat_multihost_bgzf_sam(files["sam.gz"], n_threads=4,
+                                                      impl="native"),
+    "sam_one_walker_native": M.flagstat_multihost_bgzf_sam(files["sam.gz"], n_threads=1,
+                                                           impl="native"),
+    "bam": M.flagstat_multihost_bam(files["bam"], n_threads=2, device="cpu"),
+    "bam_native": M.flagstat_multihost_bam(files["bam"], n_threads=2, impl="native"),
+    "bam_broken": M.flagstat_multihost_bam(files["broken.bam"], n_threads=2, device="cpu"),
+    "bam_broken_native": M.flagstat_multihost_bam(files["broken.bam"], n_threads=2,
+                                                  impl="native"),
     "cram_gzip": M.flagstat_multihost_cram(files["gzip.cram"], n_threads=2, device="cpu"),
     "cram_rans": M.flagstat_multihost_cram(files["rans.cram"], n_threads=2, device="cpu"),
     "cram_gzip_native": M.flagstat_multihost_cram(files["gzip.cram"], n_threads=2,
@@ -65,17 +79,22 @@ legs = {
 }
 # a file corrupt only in rank 1's range: every rank raises, none hangs
 errors = {}
-for leg, name, kw in (("bgzf_sam", "bad.sam.gz", {}), ("cram", "bad.cram", {"device": "cpu"}),
+for leg, name, kw in (("bgzf_sam", "bad.sam.gz", {"device": "cpu"}),
+                      ("bgzf_sam", "bad.sam.gz", {"impl": "native"}),
+                      ("cram", "bad.cram", {"device": "cpu"}),
                       ("cram", "bad.cram", {"impl": "native"})):
     try:
         getattr(M, "flagstat_multihost_" + leg)(files[name], n_threads=2, **kw)
     except ValueError as e:
         errors[f"{leg} {kw}"] = str(e)
-assert len(errors) == 3, errors
+assert len(errors) == 4, errors
 with open(out + ".errors.json", "w") as fh:
     json.dump(errors, fh)
-# only rank 0 counts a file whose chain broke, and only that file
-assert fallbacks == ([files["broken.bam"]] if rank == 0 else []), fallbacks
+# only rank 0 counts a file whose chain broke, and only that file, on
+# the route the leg was asked for
+broken = files["broken.bam"]
+assert fallbacks == ([["read_bam_flags", broken], ["flagstat_bam", broken]] if rank == 0
+                     else []), fallbacks
 bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "libflagstats_tpu"))
 assert not bad, bad
 np.savez(out, **{k: v.astype(np.int64) for k, v in legs.items()})
@@ -177,7 +196,9 @@ def test_two_process_container_legs(tmp_path, files):
 
     file_of = {"sam_split": "sam.gz", "sam_one_walker": "sam.gz", "bam": "bam",
                "bam_broken": "broken.bam", "cram_gzip": "gzip.cram", "cram_rans": "rans.cram",
-               "cram_gzip_native": "gzip.cram", "cram_rans_native": "rans.cram"}
+               "cram_gzip_native": "gzip.cram", "cram_rans_native": "rans.cram",
+               "sam_split_native": "sam.gz", "sam_one_walker_native": "sam.gz",
+               "bam_native": "bam", "bam_broken_native": "broken.bam"}
     for rank in range(2):
         with np.load(tmp_path / f"out{rank}.npz") as z:
             assert sorted(z.files) == sorted(file_of)
@@ -189,20 +210,24 @@ def test_two_process_container_legs(tmp_path, files):
               for rank in range(2)]
     for key, msg in errors[0].items():
         assert msg.endswith("the walk failed on rank(s) [1]"), (key, msg)
-    assert "BGZF SAM range count failed" in errors[1]["bgzf_sam {}"]
+    assert "BGZF SAM range count failed" in errors[1]["bgzf_sam {'impl': 'native'}"]
+    assert "BGZF SAM range read failed" in errors[1]["bgzf_sam {'device': 'cpu'}"]
     assert "lfs_cram_flagstat_range failed" in errors[1]["cram {'impl': 'native'}"]
     assert "CRC" in errors[1]["cram {'device': 'cpu'}"], errors[1]
 
 
 @pytest.mark.parametrize("leg,name,kw", [
-    ("bgzf_sam", "sam.gz", {}), ("bam", "bam", {}), ("bam", "broken.bam", {}),
+    ("bgzf_sam", "sam.gz", {"device": "cpu"}), ("bam", "bam", {"device": "cpu"}),
+    ("bam", "broken.bam", {"device": "cpu"}),
     ("cram", "gzip.cram", {"device": "cpu"}), ("cram", "rans.cram", {"device": "cpu"}),
-    ("cram", "gzip.cram", {"impl": "native"}), ("cram", "rans.cram", {"impl": "native"})])
+    ("cram", "gzip.cram", {"impl": "native"}), ("cram", "rans.cram", {"impl": "native"}),
+    ("bgzf_sam", "sam.gz", {"impl": "native"}), ("bam", "bam", {"impl": "native"}),
+    ("bam", "broken.bam", {"impl": "native"})])
 def test_single_process_legs_equal_jax(files, monkeypatch, leg, name, kw):
     """Outside a process group each leg is one rank over the whole file:
     it equals the JAX package's leg in its single process, and the
-    oracle (the CRAM leg by its card route's plain version on the CPU
-    and by the fused walker)."""
+    oracle, by its card route's plain version on the CPU and by the
+    fused walkers."""
     paths, words = files
     monkeypatch.delenv("WORLD_SIZE", raising=False)
     assert M._world() == (1, 0)
@@ -243,3 +268,53 @@ def test_cram_leg_without_a_card_raises_before_reading(files, monkeypatch):
     monkeypatch.setattr(cramio, "_iter_data_containers", no_read)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         M.flagstat_multihost_cram(files[0]["gzip.cram"])
+
+
+@pytest.mark.parametrize("leg,module,scan", [("bgzf_sam", "samio", "bgzf_member_count"),
+                                             ("bam", "bamio", "bam_raw_size")])
+def test_legs_without_a_card_raise_before_reading(files, monkeypatch, leg, module, scan):
+    """With no card and no device the BGZF SAM and BAM legs raise before
+    they scan the file, as the CRAM leg does; nothing counts on the
+    host."""
+    import importlib
+
+    import torch
+
+    if torch.cuda.is_available():
+        pytest.skip("checks the no-CUDA-device behaviour")
+
+    def no_read(*a, **k):
+        raise AssertionError("read before the raise")
+
+    monkeypatch.delenv("WORLD_SIZE", raising=False)
+    monkeypatch.setattr(importlib.import_module(f"libflagstats_tpu_torch.io.{module}"), scan,
+                        no_read)
+    path = files[0]["sam.gz" if leg == "bgzf_sam" else "bam"]
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        getattr(M, f"flagstat_multihost_{leg}")(path)
+
+
+def test_bam_leg_broken_chain_reads_the_whole_column(files, monkeypatch):
+    """The card route's fallback: when the chain breaks, rank 0 reads the
+    whole file's column and counts it through flagstat_multihost, never
+    through a host walker."""
+    from libflagstats_tpu_torch.io import bamio
+
+    paths, words = files
+    monkeypatch.delenv("WORLD_SIZE", raising=False)
+    reads = []
+    whole = bamio.read_bam_flags
+
+    def read(path, *a, **k):
+        reads.append(path)
+        return whole(path, *a, **k)
+
+    def no_walker(*a, **k):
+        raise AssertionError("a host walker counted the card route's fallback")
+
+    monkeypatch.setattr(bamio, "read_bam_flags_byte_range", lambda *a, **k: None)
+    monkeypatch.setattr(bamio, "read_bam_flags", read)
+    monkeypatch.setattr(bamio, "flagstat_bam", no_walker)
+    got = M.flagstat_multihost_bam(paths["broken.bam"], n_threads=2, device="cpu")
+    assert reads == [paths["broken.bam"]]
+    np.testing.assert_array_equal(got, flagstat_numpy(words["broken.bam"]))
