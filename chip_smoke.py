@@ -259,7 +259,8 @@ def check_host_library(build_seconds: float, readers_seconds: float,
           f"{native_lib.ZSTD_ROUTE} ({header})")
     print(f"readers built in {readers_seconds:.2f} s; zlib: the system <zlib.h>, -lz; "
           f"inflate: {native_lib.DEFLATE_ROUTE}")
-    print(f"range column readers (flag_columns.cpp) built in {columns_seconds:.2f} s")
+    print(f"column readers (flag_columns.cpp, cram_columns.cpp) built in "
+          f"{columns_seconds:.2f} s")
     sizes = (1, 65_537, 8 * GW - 4_321)
     for n in sizes:
         x = generate_flags(n, seed=n, full_range=True)
@@ -960,19 +961,21 @@ def write_bgzf(src: str, dst: str, level: int) -> None:
 def count_container(label: str, path: str, kind: str, words: np.ndarray, ref: np.ndarray,
                     card: str, impls=(("native", None),), tag: str = "4k") -> dict:
     """Phase 4k or 4l on one file: its kind, its column read by the
-    native reader, and flagstat_file on the card (impl=None) and with
-    each of ``impls`` (name, launch counter or None) = ``ref`` in all 32
-    counters; prints the file's host walls and returns them."""
+    native column route (for a CRAM also by the Python container walk,
+    ``read_cram_flags_py``, the route before the container column
+    reader), and flagstat_file on the card (impl=None: that route, then
+    K1 once) and with each of ``impls`` (name, launch counter or None) =
+    ``ref`` in all 32 counters; prints the file's host walls and returns
+    them."""
     from libflagstats_tpu_torch.io import read_flags_auto, sniff_format
 
     assert sniff_format(path) == kind, (label, sniff_format(path))
-    routes = {"bam": bamio, "sam": samio, "cram": cramio}
+    route = {"bam": bamio, "sam": samio, "cram": cramio}.get(kind)
     t = {}
     t0 = time.perf_counter()
     col = read_flags_auto(path)
     t["read"] = time.perf_counter() - t0
-    if kind in routes:
-        assert routes[kind].READ_ROUTE == "native", (label, routes[kind].READ_ROUTE)
+    assert route is None or route.READ_ROUTE == "native", (label, route.READ_ROUTE)
     assert np.array_equal(col, words), label
     seen = dict(K.LAUNCHES)
     t0 = time.perf_counter()
@@ -981,9 +984,20 @@ def count_container(label: str, path: str, kind: str, words: np.ndarray, ref: np
     launched(seen, "flagstat")
     assert (c == ref).all(), (label, c, ref)
     del col
+    if kind == "cram":
+        t0 = time.perf_counter()
+        col = cramio.read_cram_flags_py(path)
+        t["read_py"] = time.perf_counter() - t0
+        assert np.array_equal(col, words), label
+        del col
+    if route is not None:
+        route.READ_ROUTE = None
     t0 = time.perf_counter()
     c = L.flagstat_file(path)
     t["flagstat_file"] = time.perf_counter() - t0
+    if route is not None:   # a container: its column, then K1 once
+        assert route.READ_ROUTE == "native", (label, route.READ_ROUTE)
+        assert K.LAUNCHES["flagstat"] == seen["flagstat"] + 1, (label, K.LAUNCHES, seen)
     launched(seen, "flagstat")
     assert (c == ref).all(), (label, c, ref)
     for impl, mode in impls:
@@ -995,7 +1009,8 @@ def count_container(label: str, path: str, kind: str, words: np.ndarray, ref: np
         assert (c == ref).all(), (label, impl, c, ref)
     print(f"[{card}] {tag} {label}: {os.path.getsize(path)} bytes, {words.size} words, kind "
           f"{kind}; walls (s): " + ", ".join(f"{k} {v:.3f}" for k, v in t.items())
-          + f"; every count = the oracle in all 32 counters")
+          + f"; flagstat_file / native = {t['flagstat_file'] / t['native']:.2f}; "
+          f"every count = the oracle in all 32 counters")
     return t
 
 
@@ -1035,7 +1050,10 @@ def drive_container_path(na_words: np.ndarray, na_path: str, tmp: str, card: str
     path = os.path.join(tmp, "min.bam")
     made("minimal BAM", lambda: bamio.write_bam(path, words, level=CONTAINER_LEVEL,
                                                  threads=ncpu))
-    count_container("minimal BAM", path, "bam", words, oracle_counts(words), card, bam_impls)
+    t = count_container("minimal BAM", path, "bam", words, oracle_counts(words), card,
+                        bam_impls)
+    print(f"[{card}] 4k minimal BAM: read / count = {t['read'] / t['count']:.1f}; "
+          f"read / native = {t['read'] / t['native']:.2f}")
     os.remove(path)
 
     words = na_words[:n]
@@ -1158,7 +1176,8 @@ def drive_cram_path(na_words: np.ndarray, tmp: str, card: str) -> None:
     t = count_container("1/8 NA12878 GZIP CRAM", path, "cram", words, oracle_counts(words),
                         card, impls, tag="4l")
     print(f"[{card}] 4l 1/8 NA12878 GZIP CRAM: read / count = {t['read'] / t['count']:.1f}; "
-          f"read / native = {t['read'] / t['native']:.2f}")
+          f"read / native = {t['read'] / t['native']:.2f}; read_py / read = "
+          f"{t['read_py'] / t['read']:.2f}")
     os.remove(path)
 
     words = na_words[:n]

@@ -19,11 +19,11 @@ Format facts used (SAM/BAM spec v1.6):
 The pure-Python reader here is the correctness reference, and the
 route where the native readers did not build (``READ_ROUTE`` says which
 one the last read took; the Python route says so on standard error).
-The native walker (the port's copy of bam_reader.cpp, io/native_lib.py
-``load_readers()``) inflates BGZF members on a thread pool and walks the
-records in order; the range column reader (the port's own
-flag_columns.cpp, ``load_columns()``) reads the column of one
-inflated-byte range, for the multihost leg. The writer makes
+The native column reader (the port's own flag_columns.cpp,
+io/native_lib.py ``load_columns()``, over the port's copy of
+bam_reader.cpp) reads the column of one inflated-byte range, for the
+multihost leg, or of the whole file, range-parallel as the fused
+walker counts it (``read_bam_flags``). The writer makes
 spec-conform files for tests and synthetic runs: minimal records
 (l_seq = 0) or 151 bp HiSeqX-weight ones.
 
@@ -237,34 +237,25 @@ def read_bam_flags_py(path, max_records: int | None = None) -> np.ndarray:
 def read_bam_flags(path, threads: int = 0) -> np.ndarray:
     """FLAG column of a BAM file -> uint16 array.
 
-    The native threaded walker when the readers built (BGZF members
-    inflate in parallel, records walk in order with cross-member carry),
-    else the Python reader (``READ_ROUTE`` and a line on standard error
-    say so)."""
-    import ctypes
-
+    The whole file through the range column reader
+    (``read_bam_flags_byte_range(path, -1, -1)``), range-parallel over
+    ``threads`` threads (0: one per hardware thread) as the fused
+    walker ``lfs_bam_flagstat_parallel`` counts: shards entered by
+    resync, every seam checked, and the in-order walk where a seam does
+    not chain. Where the native readers did not build, the Python
+    reader (``READ_ROUTE`` and a line on standard error say so)."""
     global READ_ROUTE
-    lib = native_lib.load_readers()
+    lib = native_lib.column_route()
     READ_ROUTE = "python" if lib is None else "native"
     if lib is None:
         native_lib.python_route("read_bam_flags")
         return read_bam_flags_py(path)
-    size = os.path.getsize(path)
-    if size == 0:
+    if os.path.getsize(path) == 0:
         raise ValueError("empty BAM file")
-    mm = np.memmap(path, dtype=np.uint8, mode="r")
-    addr = mm.ctypes.data
-    bound = lib.lfs_bam_bound(addr, size)
-    if bound < 0:
-        raise ValueError(f"BAM parse failed (rc={bound}) — file "
-                         "corrupt, truncated, or not BGZF")
-    out = np.empty(bound, dtype=np.uint16)
-    got = lib.lfs_bam_flags(
-        addr, size, out.ctypes.data_as(ctypes.c_void_p), bound, threads)
-    if got < 0:
-        raise ValueError(f"BAM walk failed (rc={got}) — file "
-                         "corrupt, truncated, or not BGZF")
-    return out[:got].copy()
+    # the whole file never returns None: the reader falls back to the
+    # in-order walk itself
+    col, _, _ = _byte_range_column(path, -1, -1, threads)
+    return col
 
 
 def bam_raw_size(path) -> int:
@@ -325,9 +316,15 @@ def read_bam_flags_byte_range(path, byte_lo: int, byte_hi: int, threads: int = 0
     start, end), where (start, end) equal ``flagstat_bam_byte_range``'s
     and the caller MUST check that they chain across ranges; or None
     when the range could not be entered. The columns of ranges whose
-    endpoints chain concatenate to the file's column. Raises
-    RuntimeError when the range column readers did not build: there is
-    no host fallback."""
+    endpoints chain concatenate to the file's column; ``byte_lo =
+    byte_hi = -1`` reads the whole file. Raises RuntimeError when the
+    column readers did not build: there is no host fallback."""
+    return _byte_range_column(path, byte_lo, byte_hi, threads)
+
+
+def _byte_range_column(path, byte_lo: int, byte_hi: int, threads: int):
+    """One call of ``lfs_bam_flags_byte_range``, as
+    ``read_bam_flags_byte_range`` documents it."""
     import ctypes
 
     lib = native_lib.columns()
@@ -348,13 +345,13 @@ def read_bam_flags_byte_range(path, byte_lo: int, byte_hi: int, threads: int = 0
         return None
     if got < 0:
         raise ValueError(f"BAM byte-range read failed (rc={got})")
-    return out[:got], int(start.value), int(end.value)
+    return native_lib.column(out, got), int(start.value), int(end.value)
 
 
 def flagstat_bam(path, threads: int = 0, impl: str | None = None, device=None):
     """samtools-flagstat counters straight from a BAM file.
 
-    ``impl=None`` reads the column with the native walker and counts it
+    ``impl=None`` reads the column with ``read_bam_flags`` and counts it
     on the card (``device="cpu"``: the torch tier on the CPU; no card and
     no ``device``: raises before reading). Any other ``impl`` of
     ``ops.dispatch.FLAGSTAT_IMPLS`` counts the read column with that

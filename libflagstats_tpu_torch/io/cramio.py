@@ -41,12 +41,15 @@ files, so the writer is the spec oracle and hostile mutations of its
 output drive the reader's error paths.
 
 The native pieces come from the port's loader (io/native_lib.py): the
+container column reader (the port's cram_columns.cpp, the column twin
+of the fused walker) from the column readers (``load_columns()``), the
 rANS-4x8 codec and the fused container walker (cram_reader.cpp) from
 the readers' library (``load_readers()``), the itf8 stream decoder from
-the host library (``load()``). Where the readers did not build, the
-walk decodes rANS blocks in Python and counts through
-``ops.dispatch.flagstats_u16``; ``READ_ROUTE`` and one line on standard
-error say so, as in io/bamio.py and io/samio.py.
+the host library (``load()``). ``read_cram_flags`` reads the column
+with the column reader; where the native readers did not build, it
+takes ``read_cram_flags_py``, the Python container walk (rANS decoded
+in Python), and ``READ_ROUTE`` and one line on standard error say so,
+as in io/bamio.py and io/samio.py.
 
 Counting differs from the JAX package on purpose: ``flagstat_cram``
 and ``flagstat_cram_range`` read the column and count it on the card
@@ -747,6 +750,24 @@ def _decode_parsed_blocks(blocks: list[dict], n_records: int) -> np.ndarray:
 def read_cram_flags(path, threads: int = 0) -> np.ndarray:
     """FLAG column of a CRAM 3.0 subset file -> uint16 ndarray.
 
+    The container column reader (``lfs_cram_flags_range``,
+    io/csrc/cram_columns.cpp) over the mapped file: the fused walker's
+    header walk and refusals, then the containers decoded on
+    ``threads`` threads (0 = one per hardware thread), each writing its
+    FLAG words in place into a column sized exactly from the headers. A
+    refusal raises the fused walker's ValueError (rc -2 corrupt or
+    truncated, -3 outside the subset, -4 a block that does not decode).
+    Where the native readers did not build: ``read_cram_flags_py``
+    (``READ_ROUTE`` and a line on standard error say so)."""
+    return _read_range(path, 0, None, threads, "read_cram_flags")
+
+
+def read_cram_flags_py(path, threads: int = 0) -> np.ndarray:
+    """FLAG column of a CRAM 3.0 subset file by the Python container
+    walk: the counterpart of the JAX package's ``read_cram_flags``, and
+    the route of ``read_cram_flags`` where the native readers did not
+    build.
+
     The walk is COLUMNAR IN IO, not just in decode: unneeded blocks
     (sequences, qualities, names, tags — anything that is not the
     compression header, a slice header, or a BF/CF/MF external block)
@@ -759,17 +780,49 @@ def read_cram_flags(path, threads: int = 0) -> np.ndarray:
     Containers are independent, so their series decode on a thread
     pool (``threads``: 0 = os.cpu_count(), 1 = serial); the header
     walk that finds them is sequential and cheap. rANS blocks decode
-    natively when the readers built, else in Python (``READ_ROUTE`` and
-    a line on standard error say so)."""
-    return _read_range(path, 0, None, threads, "read_cram_flags")
+    natively when the readers built, else in Python. Refusals raise
+    ValueError with the reason in words."""
+    return _read_range_py(path, 0, None, threads)
 
 
 def _read_range(path, start: int, stop: int | None, threads: int,
                 what: str) -> np.ndarray:
     """FLAG column of data containers [start, stop) (stop None: to the
-    end) by the seek-only walk, containers decoded on a thread pool;
-    ``what`` names the caller in the route line."""
-    _set_route(what)
+    end): the container column reader where the native readers built,
+    else the Python walk, said on standard error; ``what`` names the
+    caller in the route line."""
+    global READ_ROUTE
+    lib = native_lib.column_route()
+    READ_ROUTE = "python" if lib is None else "native"
+    if lib is None:
+        native_lib.python_route(what)
+        return _read_range_py(path, start, stop, threads)
+    import ctypes
+    import os
+
+    size = os.path.getsize(path)
+    # an empty file has no mapping; the reader refuses it as too short
+    mm = (native_lib.map_sequential(path, willneed=False) if size
+          else np.zeros(1, dtype=np.uint8))
+    hi = -1 if stop is None else stop
+    n = lib.lfs_cram_range_records(mm.ctypes.data, size, start, hi, None)
+    if n < 0:
+        raise ValueError(_refusal("lfs_cram_range_records", n))
+    out = np.empty(n, dtype=np.uint16)
+    n_out = ctypes.c_int64(0)
+    rc = lib.lfs_cram_flags_range(mm.ctypes.data, size, start, hi,
+                                  out.ctypes.data_as(ctypes.c_void_p), n, threads,
+                                  ctypes.byref(n_out))
+    if rc != 0:
+        raise ValueError(_refusal("lfs_cram_flags_range", rc))
+    if n_out.value != n:
+        raise ValueError("CRAM file changed while it was read")
+    return out
+
+
+def _read_range_py(path, start: int, stop: int | None, threads: int) -> np.ndarray:
+    """FLAG column of data containers [start, stop) (stop None: to the
+    end) by the seek-only walk, containers decoded on a thread pool."""
     with open(path, "rb") as fh:
         jobs: list[tuple] = []         # (needed_blocks, n_records)
         for idx, (hdr, body_off) in enumerate(_iter_data_containers(fh)):
@@ -838,15 +891,6 @@ def data_container_count(path) -> int:
         return sum(1 for _ in _iter_data_containers(fh))
 
 
-def _set_route(what: str) -> None:
-    """Record in READ_ROUTE whether ``what`` has the native readers, and
-    say so on standard error when it has not."""
-    global READ_ROUTE
-    READ_ROUTE = "python" if native_lib.load_readers() is None else "native"
-    if READ_ROUTE == "python":
-        native_lib.python_route(what)
-
-
 def _fused(symbol: str, path, threads: int, *ranges: int) -> np.ndarray | None:
     """One fused CRAM walk+count of the readers over the mapped file,
     ``symbol(data, n_bytes, *ranges, counters, threads, n_records_out)``
@@ -872,8 +916,13 @@ def _fused(symbol: str, path, threads: int, *ranges: int) -> np.ndarray | None:
                               ctypes.byref(n_out))
     if rc == 0:
         return counters
-    raise ValueError(f"{symbol} failed (rc={rc}) — corrupt, truncated, or "
-                     "outside the documented CRAM subset")
+    raise ValueError(_refusal(symbol, rc))
+
+
+def _refusal(symbol: str, rc: int) -> str:
+    """The message of a native CRAM walker's or reader's negative rc."""
+    return (f"{symbol} failed (rc={rc}) — corrupt, truncated, or outside the "
+            "documented CRAM subset")
 
 
 def flagstat_cram_range(path, start: int, stop: int, threads: int = 0,
@@ -885,9 +934,10 @@ def flagstat_cram_range(path, start: int, stop: int, threads: int = 0,
     contract; counter 9 derives per chunk inside flagstats_u16).
 
     Routed as ``flagstat_cram``: ``impl=None`` reads the range's column
-    (the seek-only walk, native rANS and itf8 where the readers built)
-    and counts it on the card (``device="cpu"``: the torch tier on the
-    CPU; no card and no ``device``: raises before reading); any other
+    (the container column reader, or the Python walk where the native
+    readers did not build) and counts it on the card (``device="cpu"``:
+    the torch tier on the CPU; no card and no ``device``: raises before
+    reading); any other
     ``impl`` counts the read column with that tier; ``impl="native"``
     takes the fused range walker (lfs_cram_flagstat_range), which
     raises when the readers did not build."""

@@ -23,13 +23,16 @@ kept in ``io/csrc/`` byte for byte equal to ``libflagstats_tpu/io/native/``
   ``perf_event_open`` counter groups that ``bench/perf_native.py``
   reads. It includes ``<linux/perf_event.h>``, so an image without that
   header loses the counters and nothing else;
-* the range column readers (``load_columns()``): ``flag_columns.cpp``,
-  the port's own file, which writes the FLAG column of a BAM
-  inflated-byte range or of a BGZF SAM member range (the column twins
-  of the readers' fused range walkers). It includes the copies of
-  ``bam_reader.cpp`` and ``sam_reader.cpp`` to reach their internal
-  range machinery, so it redefines their symbols and builds alone, with
-  a copy of ``flagstats_host.cpp`` that the included walkers call.
+* the column readers (``load_columns()``): the port's own files
+  ``flag_columns.cpp``, which writes the FLAG column of a BAM
+  inflated-byte range or of a BGZF SAM member range, and
+  ``cram_columns.cpp``, which writes that of a range of CRAM data
+  containers (the column twins of the readers' fused range walkers).
+  They include the copies of ``bam_reader.cpp`` and ``sam_reader.cpp``,
+  and of ``cram_reader.cpp``, to reach their internal machinery, so
+  they redefine the copies' symbols and build into an object of their
+  own, with copies of ``rans4x8.cpp`` and ``flagstats_host.cpp`` that
+  the included walkers call.
 
 g++ builds each into ``build/torch_host/``, keyed on a hash of the
 sources, the flags and the host tag, through a temp file and a rename,
@@ -69,9 +72,11 @@ READER_SOURCES = (CSRC / "bam_reader.cpp", CSRC / "sam_reader.cpp", CSRC / "rans
 #: the readers' one local include (hashed into their build key)
 READER_HEADERS = (CSRC / "bgzf.h",)
 PERF_SOURCES = (CSRC / "perf_events.cpp",)
-COLUMNS_SOURCES = (CSRC / "flag_columns.cpp", CSRC / "flagstats_host.cpp")
-#: what flag_columns.cpp includes (hashed into its build key)
-COLUMNS_HEADERS = (CSRC / "bam_reader.cpp", CSRC / "sam_reader.cpp", CSRC / "bgzf.h")
+COLUMNS_SOURCES = (CSRC / "flag_columns.cpp", CSRC / "cram_columns.cpp", CSRC / "rans4x8.cpp",
+                   CSRC / "flagstats_host.cpp")
+#: what flag_columns.cpp and cram_columns.cpp include (hashed into their build key)
+COLUMNS_HEADERS = (CSRC / "bam_reader.cpp", CSRC / "sam_reader.cpp", CSRC / "cram_reader.cpp",
+                   CSRC / "bgzf.h")
 COMPAT_DIR = CSRC / "compat"
 BUILD_DIR = _HERE.parent.parent / "build" / "torch_host"
 CXX_FLAGS = ("-O3", "-march=native", "-std=c++17", "-shared", "-fPIC",
@@ -183,8 +188,8 @@ def build_readers() -> Path:
 
 
 def build_columns() -> Path:
-    """Compile the range column readers (``flag_columns.cpp``) unless
-    they exist; raises like ``build()``."""
+    """Compile the column readers (``flag_columns.cpp``,
+    ``cram_columns.cpp``) unless they exist; raises like ``build()``."""
     global DEFLATE_ROUTE
     DEFLATE_ROUTE, dflags, dlibs = _deflate_flags()
     return _compile("libflagstats_columns", COLUMNS_SOURCES, COLUMNS_HEADERS, dflags,
@@ -233,7 +238,7 @@ def load_perf():
 
 
 def load_columns():
-    """The bound range column readers, built at first use, or None if
+    """The bound column readers, built at first use, or None if
     they cannot be built or loaded (``COLUMNS_BUILD_ERROR`` says why)."""
     global _columns, COLUMNS_BUILD_ERROR
     with _columns_lock:
@@ -246,13 +251,35 @@ def load_columns():
 
 
 def columns():
-    """The range column readers; raises, with ``COLUMNS_BUILD_ERROR``,
-    when they did not build (there is no host fallback for a range
-    column)."""
+    """The column readers; raises, with ``COLUMNS_BUILD_ERROR``, when
+    they did not build (there is no host fallback for a range column)."""
     lib = load_columns()
     if lib is None:
-        raise RuntimeError(f"the range column readers did not build: {COLUMNS_BUILD_ERROR}")
+        raise RuntimeError(f"the column readers did not build: {COLUMNS_BUILD_ERROR}")
     return lib
+
+
+def column_route():
+    """The column readers when they and the readers both built, else
+    None. The whole-file column reads (``read_bam_flags``,
+    ``read_sam_flags``, ``read_cram_flags``) call both objects, so they
+    take the native route only with both, and the Python readers
+    otherwise, which ``python_route`` states."""
+    return load_columns() if load_readers() is not None else None
+
+
+#: a reader's bound-sized buffer comes back as a view of its column while
+#: it is at most this many times the column's length, else as a copy
+COLUMN_SLACK = 4
+
+
+def column(out, got: int):
+    """The column ``out[:got]`` that a native reader wrote into the
+    bound-sized buffer ``out``: a view, so the column is written once,
+    where the buffer is at most ``COLUMN_SLACK`` times the column (the
+    pages past it were never touched and cost address space only), else
+    a copy, so that a small column keeps no large buffer alive."""
+    return out[:got] if out.size <= COLUMN_SLACK * got else out[:got].copy()
 
 
 def readers():
@@ -267,7 +294,8 @@ def readers():
 def python_route(what: str) -> None:
     """Say on standard error that ``what`` takes the Python reader
     because the native readers did not build."""
-    first = READERS_BUILD_ERROR.splitlines()[0] if READERS_BUILD_ERROR else ""
+    err = READERS_BUILD_ERROR or COLUMNS_BUILD_ERROR
+    first = err.splitlines()[0] if err else ""
     print(f"libflagstats_tpu_torch: {what}: the Python reader (native readers "
           f"unavailable: {first})", file=sys.stderr)
 
@@ -332,8 +360,6 @@ def _bind_readers(lib):
     i64, i32, vp = ctypes.c_int64, ctypes.c_int, ctypes.c_void_p
     i64p = ctypes.POINTER(ctypes.c_int64)
     for name, res, args in (
-        ("lfs_bam_bound", i64, [vp, i64]),
-        ("lfs_bam_flags", i64, [vp, i64, vp, i64, i32]),
         ("lfs_bam_flagstat", i64, [vp, i64, vp, i32, i64]),
         ("lfs_bam_flagstat_parallel", i64, [vp, i64, vp, i32, i64]),
         ("lfs_bam_flagstat_byte_range", i64, [vp, i64, i64, i64, vp, i64p, i64p, i32, i64]),
@@ -341,7 +367,6 @@ def _bind_readers(lib):
         ("lfs_sam_flags", i64, [vp, i64, vp, i64, i32]),
         ("lfs_sam_flagstat", i64, [vp, i64, vp, i32, i64]),
         ("lfs_bgzf_raw_size", i64, [vp, i64]),
-        ("lfs_bgzf_sam_flags", i64, [vp, i64, vp, i64, i32]),
         ("lfs_bgzf_sam_flagstat", i64, [vp, i64, vp, i32, i64]),
         ("lfs_bgzf_members", i64, [vp, i64]),
         ("lfs_bgzf_sam_flagstat_range", i64, [vp, i64, i64, i64, vp, i32, i64]),
@@ -359,7 +384,8 @@ def _bind_readers(lib):
 
 
 def _bind_columns(lib):
-    """Declare the range column readers' symbols (flag_columns.cpp)."""
+    """Declare the column readers' symbols (flag_columns.cpp,
+    cram_columns.cpp)."""
     i64, i32, vp = ctypes.c_int64, ctypes.c_int, ctypes.c_void_p
     i64p = ctypes.POINTER(ctypes.c_int64)
     for name, res, args in (
@@ -367,6 +393,8 @@ def _bind_columns(lib):
         ("lfs_bam_flags_range_bound", i64, [vp, i64, i64, i64]),
         ("lfs_bgzf_sam_flags_range", i64, [vp, i64, i64, i64, vp, i64, i32]),
         ("lfs_bgzf_sam_range_bound", i64, [vp, i64, i64, i64]),
+        ("lfs_cram_range_records", i64, [vp, i64, i64, i64, i64p]),
+        ("lfs_cram_flags_range", i64, [vp, i64, i64, i64, vp, i64, i32, i64p]),
     ):
         fn = getattr(lib, name)
         fn.restype = res

@@ -11,12 +11,13 @@ The counterparts of the reference's tiny drivers:
 Direct SAM ingest: ``read_sam_flags`` parses the FLAG field (column 2)
 straight out of .sam / .sam.gz (gzip or BGZF) files with the threaded
 native parser (the port's copy of sam_reader.cpp, io/native_lib.py
-``load_readers()``); this module's pure-Python reader is the
-differential reference, and the route where the readers did not build
-(``READ_ROUTE`` says which one the last read took, and the Python route
-says so on standard error). ``read_sam_flags_range`` reads the column
-of one BGZF member range with the range column reader (the port's own
-flag_columns.cpp, ``load_columns()``), for the multihost leg.
+``load_readers()``) or, for BGZF, with the range column reader over
+every member (``read_sam_flags_range``: the port's own
+flag_columns.cpp, ``load_columns()``, which also reads one member range
+for the multihost leg); this module's pure-Python reader is the
+differential reference, and the route where the native readers did
+not build (``READ_ROUTE`` says which one the last read took, and the
+Python route says so on standard error).
 
 Counting differs from the JAX package on purpose: ``flagstat_sam``
 reads the column and counts it on the card (``impl=None``), on the CPU
@@ -230,56 +231,44 @@ def _parse_sam_buffer(lib, buf, n_bytes: int, threads: int) -> np.ndarray:
     if got < 0:
         raise ValueError(f"SAM parse failed (rc={got}) — malformed FLAG "
                          "column (see sam_reader.cpp parse contract)")
-    return out[:got].copy()
+    return native_lib.column(out, got)
 
 
-def _read_bgzf_sam_native(lib, path, threads: int) -> np.ndarray | None:
-    """BGZF-compressed SAM via the native parallel-inflate walker
-    (lfs_bgzf_sam_flags — the same double-buffered window scheme as the
-    BAM walker). Returns None when the file is gzip-but-not-BGZF, so
-    the caller falls back to the generic stream-inflate path."""
-    import ctypes
-
+def _bgzf_members(lib, path) -> int | None:
+    """The BGZF member count of a gzip file, or None when it is gzip
+    but not BGZF; corrupt or truncated members raise ValueError."""
     size = os.path.getsize(path)
-    if size == 0:
-        return np.zeros(0, dtype=np.uint16)
     mm = np.memmap(path, dtype=np.uint8, mode="r")
-    addr = mm.ctypes.data
-    raw = lib.lfs_bgzf_raw_size(addr, size)
-    if raw == -6:
+    n = lib.lfs_bgzf_members(mm.ctypes.data, size)
+    if n == -6:
         return None
-    if raw < 0:
-        raise ValueError(f"BGZF scan failed (rc={raw}) — file corrupt "
+    if n < 0:
+        raise ValueError(f"BGZF scan failed (rc={n}) — file corrupt "
                          "or truncated")
-    cap = raw // 2 + 1           # a flag-yielding line is >= 2 bytes ("0\n")
-    out = np.empty(int(cap), dtype=np.uint16)
-    got = lib.lfs_bgzf_sam_flags(
-        addr, size, out.ctypes.data_as(ctypes.c_void_p), int(cap), threads)
-    if got < 0:
-        raise ValueError(f"BGZF SAM parse failed (rc={got}) — malformed "
-                         "FLAG column or corrupt container")
-    return out[:got].copy()
+    return int(n)
 
 
 def read_sam_flags(path, threads: int = 0) -> np.ndarray:
     """FLAG column of a SAM text file (.sam, .sam.gz, BGZF) -> uint16.
 
-    The native threaded parser when the readers built, else the Python
-    reader (``READ_ROUTE`` and a line on standard error say so). With the
-    native parser, BGZF input takes the parallel-inflate walker and other
-    gzip input is stream-inflated in bounded chunks (Python's gzip handles the
-    multi-member BGZF chain) with partial lines carried across chunk
-    boundaries, so memory stays O(chunk) regardless of file size."""
+    BGZF input is read through the range column reader over every
+    member (``read_sam_flags_range``: member sub-ranges read at once,
+    each inflating on its own pool). Plain text goes through the
+    threaded native parser; other gzip input is stream-inflated in
+    bounded chunks with partial lines carried across chunk boundaries,
+    so memory stays O(chunk) regardless of file size. Where the native
+    readers did not build, the Python reader (``READ_ROUTE`` and a line
+    on standard error say so)."""
     global READ_ROUTE
-    lib = native_lib.load_readers()
-    READ_ROUTE = "python" if lib is None else "native"
-    if lib is None:
+    READ_ROUTE = "python" if native_lib.column_route() is None else "native"
+    if READ_ROUTE == "python":
         native_lib.python_route("read_sam_flags")
         return read_sam_flags_py(path)
+    lib = native_lib.readers()
     if is_gzip(path):
-        got = _read_bgzf_sam_native(lib, path, threads)
-        if got is not None:      # BGZF: parallel-inflate walker handled it
-            return got
+        members = _bgzf_members(lib, path)
+        if members is not None:
+            return read_sam_flags_range(path, 0, members, threads=threads)
         parts: list[np.ndarray] = []
         carry = b""
         with gzip.open(path, "rb") as fh:
@@ -310,7 +299,7 @@ def flagstat_sam(path, threads: int = 0, impl: str | None = None, device=None):
     """samtools-flagstat counters straight from a SAM text file (.sam,
     .sam.gz, BGZF), the .sam twin of bamio.flagstat_bam.
 
-    ``impl=None`` reads the column with the native parser and counts it
+    ``impl=None`` reads the column with ``read_sam_flags`` and counts it
     on the card (``device="cpu"``: the torch tier on the CPU; no card and
     no ``device``: raises before reading). Any other ``impl`` of
     ``ops.dispatch.FLAGSTAT_IMPLS`` counts the read column with that
@@ -394,14 +383,12 @@ def bgzf_member_count(path) -> int:
     member-range counting). Raises on non-BGZF / corrupt input, and
     RuntimeError when the readers did not build."""
     lib = native_lib.readers()
-    size = os.path.getsize(path)
-    if size == 0:
+    if os.path.getsize(path) == 0:
         return 0
-    mm = np.memmap(path, dtype=np.uint8, mode="r")
-    n = lib.lfs_bgzf_members(mm.ctypes.data, size)
-    if n < 0:
-        raise ValueError(f"BGZF scan failed (rc={n}) — not BGZF or corrupt")
-    return int(n)
+    n = _bgzf_members(lib, path)
+    if n is None:
+        raise ValueError("BGZF scan failed (rc=-6) — not BGZF")
+    return n
 
 
 def flagstat_sam_range(path, member_start: int, member_stop: int,
@@ -428,14 +415,16 @@ def flagstat_sam_range(path, member_start: int, member_stop: int,
     return counters
 
 
-def _sam_column_range(path, member_start: int, member_stop: int, threads: int) -> np.ndarray:
-    """One call of the range column reader ``lfs_bgzf_sam_flags_range``."""
+def _sam_column_range(path, member_start: int, member_stop: int,
+                      threads: int) -> tuple[np.ndarray, int]:
+    """One call of the range column reader ``lfs_bgzf_sam_flags_range``:
+    its bound-sized buffer and the length of the column written there."""
     import ctypes
 
     lib = native_lib.columns()
     size = os.path.getsize(path)
     if size == 0 or member_start >= member_stop:
-        return np.zeros(0, dtype=np.uint16)
+        return np.zeros(0, dtype=np.uint16), 0
     mm = np.memmap(path, dtype=np.uint8, mode="r")
     cap = lib.lfs_bgzf_sam_range_bound(mm.ctypes.data, size, member_start, member_stop)
     got = cap
@@ -445,7 +434,7 @@ def _sam_column_range(path, member_start: int, member_stop: int, threads: int) -
                                            out.ctypes.data_as(ctypes.c_void_p), cap, threads)
     if got < 0:
         raise ValueError(f"BGZF SAM range read failed (rc={got})")
-    return out[:got]
+    return out, got
 
 
 def read_sam_flags_range(path, member_start: int, member_stop: int,
@@ -463,8 +452,8 @@ def read_sam_flags_range(path, member_start: int, member_stop: int,
     parts = _split_over_ranges(path, member_start, member_stop, threads,
                                lambda a, b, per: _sam_column_range(path, a, b, per))
     if parts is None:
-        return _sam_column_range(path, member_start, member_stop, threads)
-    return np.concatenate(parts)
+        return native_lib.column(*_sam_column_range(path, member_start, member_stop, threads))
+    return np.concatenate([out[:got] for out, got in parts])
 
 
 def read_binary(path, mmap: bool = True) -> np.ndarray:

@@ -325,7 +325,8 @@ def flagstat_multihost_cram(path, n_threads: int = 0, impl: str | None = None,
     the header chain (seek-only, a few dozen bytes per container; no
     resync, unlike BAM) and counts its contiguous container range with
     io/cramio.flagstat_cram_range, routed as there: ``impl=None`` reads
-    the range's column and counts it on ``device`` (default: the card;
+    the range's column (the container column reader, cram_columns.cpp)
+    and counts it on ``device`` (default: the card;
     with no card and no ``device`` every rank raises before reading),
     ``impl="native"`` the fused range walker. Only the 32 counters
     cross ranks."""

@@ -139,15 +139,18 @@ def test_python_route_without_the_readers_is_stated(bams, words, monkeypatch, ca
 
 
 def test_zlib_inflate_route_reads_what_the_default_route_reads(monkeypatch, tmp_path, bams, words):
-    """The readers built to inflate with zlib alone (``-DLFS_NO_LIBDEFLATE``,
-    the route of a host with no libdeflate) walk the BAM to the default
-    build's column and counters."""
+    """The readers and the column readers built to inflate with zlib
+    alone (``-DLFS_NO_LIBDEFLATE``, the route of a host with no
+    libdeflate) walk the BAM to the default build's column and
+    counters."""
     monkeypatch.setattr(native_lib, "BUILD_DIR", tmp_path)
     monkeypatch.setattr(native_lib, "DEFLATE_ROUTE", None)    # restored after the test
     monkeypatch.setattr(native_lib, "_deflate_flags", lambda: ("zlib", ["-DLFS_NO_LIBDEFLATE"], []))
     lib = native_lib._bind_readers(ctypes.CDLL(str(native_lib.build_readers())))
+    columns = native_lib._bind_columns(ctypes.CDLL(str(native_lib.build_columns())))
     assert native_lib.DEFLATE_ROUTE == "zlib"
     monkeypatch.setattr(native_lib, "load_readers", lambda: lib)
+    monkeypatch.setattr(native_lib, "load_columns", lambda: columns)
     for kind, want in (("minimal", words), ("realistic", words[:60_000])):
         np.testing.assert_array_equal(tbam.read_bam_flags(bams[kind], threads=2), want)
         np.testing.assert_array_equal(tbam.flagstat_bam(bams[kind], impl="native"),

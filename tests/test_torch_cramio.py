@@ -4,10 +4,13 @@ itf8/ltf8 at their edges (native = Python), write_cram's bytes for the
 RAW, GZIP and RANS methods at one and many containers, each package reading the
 other's files, read_cram_flags and flagstat_cram in every tier (the
 kernel impls through their plain versions on the CPU) = JAX = the
-oracle, the subset's refusals on both walkers, truncations and byte
-flips that never miscount, the columnar skip, container ranges summing
-to the whole, the stated Python route without the readers, and the
-raise before reading when there is no card."""
+oracle, the subset's refusals on every reader (the Python walk in the
+JAX package's words, the fused walker and the container column reader
+behind read_cram_flags with the same rc), truncations and byte flips
+that never miscount, the columnar skip, container ranges summing to
+the whole, the stated Python route without the readers, and the raise
+before reading when there is no card."""
+import re
 import struct
 import zlib
 
@@ -181,7 +184,7 @@ def test_cli_flagstat_and_bam2flags_cram(tmp_path, capsys):
     np.testing.assert_array_equal(np.fromfile(tmp_path / "f.bin", dtype="<u2"), x)
 
 
-# ---- refusals: both walkers raise, neither guesses ----
+# ---- refusals: every reader raises, none guesses ----
 
 def _raise_message(call, path) -> str:
     with pytest.raises(ValueError) as e:
@@ -189,131 +192,163 @@ def _raise_message(call, path) -> str:
     return str(e.value)
 
 
+def _rc(message: str) -> str:
+    """The "(rc=N)" of a native walker's or reader's refusal."""
+    return re.search(r"\(rc=-?\d+\)", message).group(0)
+
+
+def _column_refuses_as_the_fused_walker(p) -> None:
+    """The column reader (read_cram_flags, flagstat_cram and
+    flagstat_cram_range on the card route) raises the fused walker's
+    ValueError: the same rc, in the same words."""
+    fused = _raise_message(_fused, p)
+    assert fused.startswith("lfs_cram_flagstat failed (rc=")
+    assert fused == _raise_message(jcram.flagstat_cram, p)
+    column = _raise_message(tcram.read_cram_flags, p)
+    assert tcram.READ_ROUTE == "native"
+    assert re.match(r"lfs_cram_(flags_range|range_records) failed \(rc=", column), column
+    assert column.split(" failed ")[1] == fused.split(" failed ")[1]
+    for call in (lambda q: tcram.flagstat_cram(q, device="cpu"),
+                 lambda q: tcram.flagstat_cram_range(q, 0, 1, device="cpu")):
+        assert _rc(_raise_message(call, p)) == _rc(fused)
+
+
 def test_bad_magic_and_version(tmp_path):
     p = tmp_path / "x.cram"
     for blob, match in ((b"CRAX" + b"\x00" * 30, "not a CRAM"),
                         (b"CRAM\x02\x01" + b"\x00" * 30, "unsupported")):
         p.write_bytes(blob)
-        msg = _raise_message(tcram.read_cram_flags, p)
+        msg = _raise_message(tcram.read_cram_flags_py, p)
         assert match in msg and msg == _raise_message(jcram.read_cram_flags, p)
-        assert _raise_message(_fused, p) == _raise_message(jcram.flagstat_cram, p)
+        _column_refuses_as_the_fused_walker(p)
+    p.write_bytes(b"")      # the fused walkers map no empty file: they read its column
+    assert _raise_message(tcram.read_cram_flags_py, p) == \
+        _raise_message(jcram.read_cram_flags, p) == "not a CRAM file"
+    assert _rc(_raise_message(tcram.read_cram_flags, p)) == "(rc=-2)"
 
 
-def _refused(tmp_path, monkeypatch, patch, match):
-    """Write a CRAM with ``patch`` applied to both packages' writers and
-    check that every reader refuses it the same way."""
-    x = generate_flags(300, seed=1)
+def _patch_series_codec(m, mod):
+    """A BF series with a non-EXTERNAL encoding (HUFFMAN, 3)."""
+    def bad_header(method):
+        pres = mod._write_map([(b"RN", b"\x01")])
+        ds = mod._write_map([
+            (b"BF", mod.itf8_encode(3) + mod.itf8_encode(0)),
+            (b"CF", mod.itf8_encode(mod.ENC_EXTERNAL) + mod.itf8_encode(1)
+             + mod.itf8_encode(mod.ID_CF))])
+        return mod._write_block(mod.RAW, mod.CT_COMPRESSION_HEADER, 0,
+                                pres + ds + mod._write_map([]))
+    m.setattr(mod, "_compression_header_block", bad_header)
+
+
+def _patch_block_method(m, mod):
+    """Series blocks in a compression method outside raw/gzip/rANS
+    (bzip2, 2)."""
+    write = mod._write_block
+
+    def bzip_block(method, ctype, content_id, data):
+        if ctype != mod.CT_EXTERNAL:
+            return write(method, ctype, content_id, data)
+        body = (bytes([2, ctype]) + mod.itf8_encode(content_id)
+                + mod.itf8_encode(len(data)) + mod.itf8_encode(len(data)) + data)
+        return body + struct.pack("<I", zlib.crc32(body))
+    m.setattr(mod, "_write_block", bzip_block)
+
+
+def _patch_mate_downstream(m, mod):
+    """Within-slice mate linking (CF 0x4, not detached)."""
+    m.setattr(mod, "CF_DETACHED", mod.CF_MATE_DOWNSTREAM)
+
+
+def _patch_rans_order1(m, mod):
+    """rANS series blocks that claim order 1 (rc -3 natively)."""
+    compress = mod._rans_compress
+    m.setattr(mod, "_rans_compress", lambda data: b"\x01" + compress(data)[1:])
+
+
+def _patch_count_mismatch(m, mod):
+    """Container and slice disagree on the record count."""
+    orig = mod._slice_blocks
+
+    def bad_slice(flags, counter, method):
+        blocks = orig(flags, counter, method)
+        head = (mod.itf8_encode(-1) + mod.itf8_encode(0) + mod.itf8_encode(0)
+                + mod.itf8_encode(max(flags.size - 1, 0))
+                + mod.ltf8_encode(counter) + mod.itf8_encode(4) + mod.itf8_encode(3)
+                + b"".join(mod.itf8_encode(c) for c in (1, 2, 3))
+                + mod.itf8_encode(-1) + b"\x00" * 16)
+        blocks[0] = mod._write_block(mod.RAW, mod.CT_SLICE_HEADER, 0, head)
+        return blocks
+    m.setattr(mod, "_slice_blocks", bad_slice)
+
+
+#: each refusal case: (writer patch, block method, the Python walk's words)
+REFUSALS = {"series codec": (_patch_series_codec, tcram.RAW, "EXTERNAL"),
+            "block method": (_patch_block_method, tcram.RAW, "compression method 2"),
+            "mate downstream": (_patch_mate_downstream, tcram.RAW, "mate linking"),
+            "rans order-1": (_patch_rans_order1, tcram.RANS, "order-1"),
+            "count mismatch": (_patch_count_mismatch, tcram.RAW, "count mismatch")}
+
+
+def write_refused(path, name: str, mod=tcram) -> None:
+    """300 words written by ``mod``'s writer under refusal ``name``'s patch."""
+    patch, method, _ = REFUSALS[name]
+    with pytest.MonkeyPatch.context() as m:
+        patch(m, mod)
+        mod.write_cram(path, generate_flags(300, seed=1), method=method)
+
+
+def _refused(tmp_path, name):
+    """Write refusal ``name``'s CRAM with both packages' writers and
+    check that every reader refuses it: the Python walk in the JAX
+    package's words, the fused walkers and the column reader with the
+    same rc."""
     paths = {}
-    for name, mod in (("jax", jcram), ("port", tcram)):
-        with monkeypatch.context() as m:
-            patch(m, mod)
-            paths[name] = tmp_path / f"{name}.cram"
-            mod.write_cram(paths[name], x, method=mod.RAW)
+    for label, mod in (("jax", jcram), ("port", tcram)):
+        paths[label] = tmp_path / f"{label}.cram"
+        write_refused(paths[label], name, mod)
     assert paths["jax"].read_bytes() == paths["port"].read_bytes()
     p = paths["port"]
-    msg = _raise_message(tcram.read_cram_flags, p)
+    match = REFUSALS[name][2]
+    msg = _raise_message(tcram.read_cram_flags_py, p)
     assert match in msg and msg == _raise_message(jcram.read_cram_flags, p)
-    with pytest.raises(ValueError, match=match):
-        tcram.flagstat_cram(p, device="cpu")
-    native = _raise_message(_fused, p)
-    assert native.startswith("lfs_cram_flagstat failed (rc=")
-    assert native == _raise_message(jcram.flagstat_cram, p)
+    _column_refuses_as_the_fused_walker(p)
     with pytest.raises(ValueError, match="lfs_cram_flagstat_range failed"):
         tcram.flagstat_cram_range(p, 0, 1, impl="native")
-    with pytest.raises(ValueError, match=match):
-        tcram.flagstat_cram_range(p, 0, 1, device="cpu")
+    return p
 
 
-def test_unsupported_series_codec(tmp_path, monkeypatch):
-    """A BF series with a non-EXTERNAL encoding (HUFFMAN, 3) errors."""
-    def patch(m, mod):
-        def bad_header(method):
-            pres = mod._write_map([(b"RN", b"\x01")])
-            ds = mod._write_map([
-                (b"BF", mod.itf8_encode(3) + mod.itf8_encode(0)),
-                (b"CF", mod.itf8_encode(mod.ENC_EXTERNAL) + mod.itf8_encode(1)
-                 + mod.itf8_encode(mod.ID_CF))])
-            return mod._write_block(mod.RAW, mod.CT_COMPRESSION_HEADER, 0,
-                                    pres + ds + mod._write_map([]))
-        m.setattr(mod, "_compression_header_block", bad_header)
-
-    _refused(tmp_path, monkeypatch, patch, "EXTERNAL")
+def test_unsupported_series_codec(tmp_path):
+    _refused(tmp_path, "series codec")
 
 
-def test_unsupported_block_method(tmp_path, monkeypatch):
-    """A series block in a compression method outside raw/gzip/rANS
-    (bzip2, 2) errors."""
-    def patch(m, mod):
-        write = mod._write_block
-
-        def bzip_block(method, ctype, content_id, data):
-            if ctype != mod.CT_EXTERNAL:
-                return write(method, ctype, content_id, data)
-            body = (bytes([2, ctype]) + mod.itf8_encode(content_id)
-                    + mod.itf8_encode(len(data)) + mod.itf8_encode(len(data)) + data)
-            return body + struct.pack("<I", zlib.crc32(body))
-        m.setattr(mod, "_write_block", bzip_block)
-
-    _refused(tmp_path, monkeypatch, patch, "compression method 2")
+def test_unsupported_block_method(tmp_path):
+    _refused(tmp_path, "block method")
 
 
-def test_mate_downstream_refused(tmp_path, monkeypatch):
-    """Within-slice mate linking (CF 0x4, not detached) cannot be
-    reconstructed without the full record decode: refused."""
-    def patch(m, mod):
-        m.setattr(mod, "CF_DETACHED", mod.CF_MATE_DOWNSTREAM)
-
-    _refused(tmp_path, monkeypatch, patch, "mate linking")
+def test_mate_downstream_refused(tmp_path):
+    """Within-slice mate linking cannot be reconstructed without the
+    full record decode: refused."""
+    _refused(tmp_path, "mate downstream")
 
 
 def test_rans_order1_block_refused(tmp_path, monkeypatch):
-    """A CRAM whose rANS series blocks claim order 1 (rc -3 natively)."""
-    def patch(m, mod):
-        compress = mod._rans_compress
-        m.setattr(mod, "_rans_compress", lambda data: b"\x01" + compress(data)[1:])
-
-    x = generate_flags(300, seed=1)
-    paths = {}
-    for name, mod in (("jax", jcram), ("port", tcram)):
-        with monkeypatch.context() as m:
-            patch(m, mod)
-            paths[name] = tmp_path / f"{name}.cram"
-            mod.write_cram(paths[name], x, method=mod.RANS)
-    assert paths["jax"].read_bytes() == paths["port"].read_bytes()
-    p = paths["port"]
-    msg = _raise_message(tcram.read_cram_flags, p)
-    assert "order-1" in msg and msg == _raise_message(jcram.read_cram_flags, p)
-    assert _raise_message(_fused, p) == _raise_message(jcram.flagstat_cram, p) == \
+    p = _refused(tmp_path, "rans order-1")
+    assert _raise_message(_fused, p) == \
         "lfs_cram_flagstat failed (rc=-3) — corrupt, truncated, or outside the " \
         "documented CRAM subset"
-    with monkeypatch.context() as m:            # the Python decoder refuses it too
-        m.setattr(native_lib, "load_readers", lambda: None)
-        with pytest.raises(ValueError, match="order-1"):
-            tcram.read_cram_flags(p)
+    monkeypatch.setattr(native_lib, "load_readers", lambda: None)   # the Python decoder too
+    with pytest.raises(ValueError, match="order-1"):
+        tcram.read_cram_flags(p)
+    assert tcram.READ_ROUTE == "python"
 
 
-def test_record_count_mismatch_caught(tmp_path, monkeypatch):
-    """Container and slice disagree on the record count: an error."""
-    def patch(m, mod):
-        orig = mod._slice_blocks
-
-        def bad_slice(flags, counter, method):
-            blocks = orig(flags, counter, method)
-            head = (mod.itf8_encode(-1) + mod.itf8_encode(0) + mod.itf8_encode(0)
-                    + mod.itf8_encode(max(flags.size - 1, 0))
-                    + mod.ltf8_encode(counter) + mod.itf8_encode(4) + mod.itf8_encode(3)
-                    + b"".join(mod.itf8_encode(c) for c in (1, 2, 3))
-                    + mod.itf8_encode(-1) + b"\x00" * 16)
-            blocks[0] = mod._write_block(mod.RAW, mod.CT_SLICE_HEADER, 0, head)
-            return blocks
-        m.setattr(mod, "_slice_blocks", bad_slice)
-
-    _refused(tmp_path, monkeypatch, patch, "count mismatch")
+def test_record_count_mismatch_caught(tmp_path):
+    _refused(tmp_path, "count mismatch")
 
 
 # ---- hostile inputs never miscount ----
 
-@pytest.mark.parametrize("walker", ["python", "native"])
+@pytest.mark.parametrize("walker", ["python", "native", "column"])
 def test_truncation_never_miscounts(tmp_path, walker):
     """Every prefix of a valid CRAM either errors or, at a container
     boundary, holds exactly the records of its whole containers."""
@@ -329,8 +364,9 @@ def test_truncation_never_miscounts(tmp_path, walker):
     for cut in cuts:
         q.write_bytes(blob[:cut])
         try:
-            if walker == "python":
-                got = tcram.read_cram_flags(q)
+            if walker != "native":
+                read = tcram.read_cram_flags_py if walker == "python" else tcram.read_cram_flags
+                got = read(q)
                 want = x[:got.size]
                 assert got.size in (0, 1000, 2000, 3000)
                 np.testing.assert_array_equal(got, want)
@@ -346,7 +382,7 @@ def test_truncation_never_miscounts(tmp_path, walker):
     assert ok_prefix < len(cuts)   # truncations do get caught
 
 
-@pytest.mark.parametrize("walker", ["python", "native"])
+@pytest.mark.parametrize("walker", ["python", "native", "column"])
 def test_mutation_never_miscounts(tmp_path, walker):
     """Single-bit flips: every read either raises or returns the exact
     column (a flip inside the ignored 20-byte file id, say)."""
@@ -356,13 +392,15 @@ def test_mutation_never_miscounts(tmp_path, walker):
     tcram.write_cram(p, x)
     blob = bytearray(p.read_bytes())
     q = tmp_path / "mut.cram"
-    rng = np.random.default_rng(1 if walker == "python" else 3)
+    rng = np.random.default_rng({"python": 1, "native": 3, "column": 4}[walker])
     for pos in rng.integers(0, len(blob), 250).tolist():
         mut = bytearray(blob)
         mut[pos] ^= 1 << int(rng.integers(0, 8))
         q.write_bytes(bytes(mut))
         try:
             if walker == "python":
+                np.testing.assert_array_equal(tcram.read_cram_flags_py(q), x)
+            elif walker == "column":
                 np.testing.assert_array_equal(tcram.read_cram_flags(q), x)
             else:
                 np.testing.assert_array_equal(_fused(q), ref)

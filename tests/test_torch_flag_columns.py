@@ -3,10 +3,13 @@ io/native_lib.py ``load_columns()``): ``bamio.read_bam_flags_byte_range``
 and ``samio.read_sam_flags_range`` against the JAX package on the same
 seeded files, tolerance 0. Over P = 1..5 ranges and 1, 2 and 4 threads
 the range columns concatenate to the JAX package's ``read_bam_flags`` /
-``read_sam_flags``; each range's endpoints, its column's counters and
-its refusals equal those of the JAX package's fused range walkers
-(``flagstat_bam_byte_range``, ``flagstat_sam_range``). The same cases run
-once more through a build under AddressSanitizer and
+``read_sam_flags``, as do the port's whole-file reads through them;
+each range's endpoints, its column's counters and its refusals equal
+those of the JAX package's fused range walkers
+(``flagstat_bam_byte_range``, ``flagstat_sam_range``). The same cases,
+and those of the CRAM container column reader (cram_columns.cpp, in the
+same object: container ranges, refusals, truncations and bit flips),
+run once more through a build under AddressSanitizer and
 UndefinedBehaviorSanitizer, in a worker process that preloads their
 runtimes."""
 import ctypes
@@ -21,12 +24,14 @@ import numpy as np
 import pytest
 
 from libflagstats_tpu.io import bamio as jbam
+from libflagstats_tpu.io import cramio as jcram
 from libflagstats_tpu.io import samio as jsam
 from libflagstats_tpu.oracle import flagstat_numpy, generate_flags
 from libflagstats_tpu_torch.io import bamio as tbam
 from libflagstats_tpu_torch.io import native_lib
 from libflagstats_tpu_torch.io import samio as tsam
 from libflagstats_tpu_torch.io.codec import shard_block_ranges
+from test_torch_cramio import REFUSALS, write_refused
 from test_torch_multihost_containers_2proc import _broken_bam, _corrupt_last_member
 
 _REPO = str(Path(__file__).resolve().parent.parent)
@@ -35,6 +40,10 @@ SAM_MALFORMED = {"not a number": b"r1\tx77\t*\n", "over 16 bits": b"r1\t65536\t*
 BAM_REFUSALS = ["truncated.bam", "not gzip", "bgzf, not BAM", "empty", "plain text.sam"]
 SAM_REFUSALS = ["truncated.sam.gz", "corrupt member.sam.gz", "plain text.sam", "gzip.sam.gz",
                 *SAM_MALFORMED]
+CRAMS = {"gzip.cram": jcram.GZIP, "rans.cram": jcram.RANS, "raw.cram": jcram.RAW}
+CRAM_REFUSALS = [*REFUSALS, "bad magic", "bad version", "empty"]
+#: records a container of the sanitizer's CRAM files
+CRAM_RPC = 7_000
 
 
 def _bgzf(data: bytes, path, member: int) -> None:
@@ -51,7 +60,9 @@ def files(tmp_path_factory):
     splits into shards, a minimal BAM of 150,001 records, the broken BAM
     of the legs' test,
     a BGZF SAM of 8,000-byte members, one of 20-byte members (its
-    54-byte header spans the first three), and the refusal cases."""
+    54-byte header spans the first three), the first 30,000 words as a
+    CRAM of 7,000 records a container in each block method, and the
+    refusal cases."""
     d = tmp_path_factory.mktemp("columns")
     x = generate_flags(150_001, seed=111, full_range=True)
     f = {"realistic.bam": d / "r.bam", "minimal.bam": d / "m.bam",
@@ -85,6 +96,17 @@ def files(tmp_path_factory):
     for name, body in SAM_MALFORMED.items():
         f[name] = d / f"m{len(f)}.sam.gz"
         _bgzf(b"r0\t1\t*\n" * 3000 + body + b"r1\t2\t*\n", f[name], 8_000)
+    for name, method in CRAMS.items():
+        f[name] = d / name
+        jcram.write_cram(f[name], x[:30_000], records_per_container=CRAM_RPC, method=method)
+    for name in CRAM_REFUSALS:
+        f["cram " + name] = d / f"c{len(f)}.cram"
+        if name in REFUSALS:
+            write_refused(f["cram " + name], name)
+        else:
+            f["cram " + name].write_bytes({"bad magic": b"CRAX" + b"\x00" * 30,
+                                           "bad version": b"CRAM\x02\x01" + b"\x00" * 30,
+                                           "empty": b""}[name])
     return f
 
 
@@ -130,6 +152,8 @@ def test_bam_range_columns_equal_jax(files, name, threads):
     got = tbam.read_bam_flags_byte_range(path, -1, -1, threads=threads)   # the whole file
     np.testing.assert_array_equal(got[0], want)
     assert got[1:] == jbam.flagstat_bam_byte_range(path, -1, -1, threads=threads)[2:]
+    np.testing.assert_array_equal(tbam.read_bam_flags(path, threads=threads), want)
+    assert tbam.READ_ROUTE == "native"
 
 
 def test_the_broken_bams_second_half_cannot_be_entered(files):
@@ -160,6 +184,8 @@ def test_sam_member_range_columns_equal_jax(files, threads):
                                           jsam.flagstat_sam_range(path, a, b, threads=threads))
             cols.append(col)
         np.testing.assert_array_equal(np.concatenate(cols), want)
+    np.testing.assert_array_equal(tsam.read_sam_flags(path, threads=threads), want)
+    assert tsam.READ_ROUTE == "native"
     for a in (0, 7, n):   # empty ranges
         assert tsam.read_sam_flags_range(path, a, a, threads=threads).size == 0
 
@@ -229,9 +255,9 @@ def test_capacity_and_bounds(files):
 #: the sanitizer worker: binds the port's loader to the instrumented
 #: build, runs the cases and writes what each returned
 _SAN_WORKER = r'''
-import ctypes, json, sys
+import ctypes, json, os, sys
 import numpy as np
-from libflagstats_tpu_torch.io import bamio, native_lib, samio
+from libflagstats_tpu_torch.io import bamio, cramio, native_lib, samio
 from libflagstats_tpu_torch.io.codec import shard_block_ranges
 
 native_lib._columns = native_lib._bind_columns(ctypes.CDLL(sys.argv[1]))
@@ -260,6 +286,8 @@ for name in ("realistic.bam", "minimal.bam", "broken.bam"):
                 if r is not None:
                     cols[key] = np.array(r[0])
                     outcomes[key] = [outcomes[key], r[1], r[2]]
+        cols[f"{name} {threads} whole"] = bamio.read_bam_flags(files[name], threads=threads)
+cols["sam.gz whole"] = samio.read_sam_flags(files["sam.gz"], threads=4)
 n = samio.bgzf_member_count(files["sam.gz"])
 for threads in (1, 4):
     for parts in (1, 2, 3):
@@ -274,6 +302,34 @@ for name in spec["bam_refusals"]:
 for name in spec["sam_refusals"]:
     outcomes["sam " + name] = outcome(samio.read_sam_flags_range, files[name], 0, 1 << 20,
                                       threads=2)[0]
+for name in spec["crams"]:
+    n = cramio.data_container_count(files[name])
+    for threads in (1, 4):
+        for parts in (1, 2, 3):
+            for p, (a, b) in enumerate(shard_block_ranges(n, parts)):
+                cols[f"{name} {threads} {parts} {p}"] = cramio._read_range(files[name], a, b,
+                                                                           threads, "worker")
+                assert cramio.READ_ROUTE == "native"
+for name in spec["cram_refusals"]:
+    outcomes["cram " + name] = outcome(cramio.read_cram_flags, files["cram " + name],
+                                       threads=2)[0]
+# hostile inputs: prefixes and single-bit flips of the GZIP CRAM
+blob = open(files["gzip.cram"], "rb").read()
+hostile = os.path.join(os.path.dirname(out), "hostile.cram")
+rng = np.random.default_rng(7)
+cases = [("cut", int(c), None) for c in rng.integers(1, len(blob), 40)]
+cases += [("flip", int(pos), int(bit)) for pos, bit in zip(rng.integers(0, len(blob), 40),
+                                                           rng.integers(0, 8, 40))]
+for kind, at, bit in cases:
+    mut = bytearray(blob[:at] if kind == "cut" else blob)
+    if kind == "flip":
+        mut[at] ^= 1 << bit
+    with open(hostile, "wb") as fh:
+        fh.write(mut)
+    key = f"{kind} {at} {bit}"
+    outcomes[key], r = outcome(cramio.read_cram_flags, hostile, threads=2)
+    if r is not None:
+        cols[key] = r
 np.savez(out, **{k.replace(" ", "|"): v for k, v in cols.items()})
 with open(out + ".json", "w") as fh:
     json.dump(outcomes, fh)
@@ -281,9 +337,11 @@ with open(out + ".json", "w") as fh:
 
 
 def test_range_readers_under_address_and_ub_sanitizers(files, tmp_path):
-    """flag_columns.cpp built with -fsanitize=address,undefined runs the
-    column, edge and refusal cases above with no report, and returns
-    what the JAX package's readers and fused range walkers say."""
+    """flag_columns.cpp and cram_columns.cpp built with
+    -fsanitize=address,undefined run the column, edge and refusal cases
+    above, the whole-file reads, and truncations and bit flips of a
+    CRAM with no report, and return what the JAX package's readers and
+    fused range walkers say."""
     so = tmp_path / "columns_san.so"
     cmd = ["g++", "-O0", "-fno-omit-frame-pointer", "-fsanitize=address,undefined",
            "-fno-sanitize-recover=undefined", "-std=c++17", "-shared", "-fPIC", "-pthread",
@@ -300,7 +358,8 @@ def test_range_readers_under_address_and_ub_sanitizers(files, tmp_path):
     script.write_text(_SAN_WORKER)
     out = tmp_path / "cols.npz"
     arg = json.dumps({"files": {k: str(v) for k, v in files.items()},
-                      "bam_refusals": BAM_REFUSALS, "sam_refusals": SAM_REFUSALS})
+                      "bam_refusals": BAM_REFUSALS, "sam_refusals": SAM_REFUSALS,
+                      "crams": sorted(CRAMS), "cram_refusals": CRAM_REFUSALS})
     r = subprocess.run([sys.executable, str(script), str(so), arg, str(out)],
                        capture_output=True, text=True, env=env, timeout=600)
     assert r.returncode == 0 and "Sanitizer" not in r.stderr, r.stderr[-6000:]
@@ -324,7 +383,9 @@ def test_range_readers_under_address_and_ub_sanitizers(files, tmp_path):
                     got.append(cols[key])
                 if name != "broken.bam" or parts == 1:
                     np.testing.assert_array_equal(np.concatenate(got), want)
+            np.testing.assert_array_equal(cols[f"{name} {threads} whole"], want)
     want = jsam.read_sam_flags(files["sam.gz"])
+    np.testing.assert_array_equal(cols["sam.gz whole"], want)
     for threads in (1, 4):
         for parts in (1, 2, 3):
             np.testing.assert_array_equal(
@@ -338,3 +399,22 @@ def test_range_readers_under_address_and_ub_sanitizers(files, tmp_path):
     for name in SAM_REFUSALS:
         want = _outcome(jsam.flagstat_sam_range, files[name], 0, 1 << 20, threads=2)
         assert outcomes["sam " + name] == want == "ValueError", name
+    words = jcram.read_cram_flags(files["gzip.cram"])
+    for name in CRAMS:
+        np.testing.assert_array_equal(jcram.read_cram_flags(files[name]), words)
+        for threads in (1, 4):
+            for parts in (1, 2, 3):
+                np.testing.assert_array_equal(np.concatenate(
+                    [cols[f"{name} {threads} {parts} {p}"] for p in range(parts)]), words)
+    for name in CRAM_REFUSALS:
+        assert outcomes["cram " + name] == "ValueError", name
+    hostile = [k for k in outcomes if k.split()[0] in ("cut", "flip")]
+    assert len(hostile) > 40 and any(outcomes[k] == "ValueError" for k in hostile)
+    for key in hostile:   # an error, or the exact column (of whole containers, if cut)
+        if outcomes[key] == "ok":
+            col = cols[key]
+            assert col.size in ((words.size,) if key.startswith("flip") else
+                                (*range(0, words.size, CRAM_RPC), words.size)), key
+            np.testing.assert_array_equal(col, words[:col.size])
+        else:
+            assert outcomes[key] == "ValueError", key

@@ -25,6 +25,7 @@ from libflagstats_tpu.oracle import flagstat_numpy, generate_flags
 import libflagstats_tpu_torch as L
 from libflagstats_tpu_torch import cli as tcli
 from libflagstats_tpu_torch.io import read_flags_auto, sniff_format
+from libflagstats_tpu_torch.io.cramio import read_cram_flags_py
 from libflagstats_tpu_torch.ops import kernels as K
 
 KINDS = {"bam": "bam", "realistic.bam": "bam", "sam": "sam", "txt": "sam",
@@ -117,8 +118,12 @@ def test_truncated_gzip_and_cram(tmp_path):
     assert sniff_format(cram) == J.io.sniff_format(cram) == "cram"
     with pytest.raises(ValueError) as jax_error:
         J.io.read_flags_auto(cram)
+    with pytest.raises(ValueError, match=re.escape(str(jax_error.value))):
+        read_cram_flags_py(cram)
+    # the card route's container column reader refuses it with the fused
+    # walker's rc (-2: truncated or corrupt)
     for call in (read_flags_auto, lambda p: L.flagstat_file(p, device="cpu")):
-        with pytest.raises(ValueError, match=re.escape(str(jax_error.value))):
+        with pytest.raises(ValueError, match=re.escape("failed (rc=-2)")):
             call(cram)
 
 

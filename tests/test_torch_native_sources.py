@@ -1,8 +1,8 @@
 """The port's copies of the host C++ sources equal the JAX package's byte
 for byte, the loader compiles only sources under the port (the port's
-own flag_columns.cpp reaches the readers through the copies only), and
-the package data ships the copies and their headers. Reads files only;
-imports nothing of either package."""
+own flag_columns.cpp and cram_columns.cpp reach the readers through the
+copies only), and the package data ships the copies and their headers.
+Reads files only; imports nothing of either package."""
 import re
 import tomllib
 from pathlib import Path
@@ -33,19 +33,24 @@ def test_loader_builds_only_the_ports_sources():
             'CSRC / "flagstats_host.cpp")') in text
     assert 'READER_HEADERS = (CSRC / "bgzf.h",)' in text
     assert 'PERF_SOURCES = (CSRC / "perf_events.cpp",)' in text
-    assert 'COLUMNS_SOURCES = (CSRC / "flag_columns.cpp", CSRC / "flagstats_host.cpp")' in text
+    assert ('COLUMNS_SOURCES = (CSRC / "flag_columns.cpp", CSRC / "cram_columns.cpp", '
+            'CSRC / "rans4x8.cpp",\n                   CSRC / "flagstats_host.cpp")') in text
     assert ('COLUMNS_HEADERS = (CSRC / "bam_reader.cpp", CSRC / "sam_reader.cpp", '
-            'CSRC / "bgzf.h")') in text
+            'CSRC / "cram_reader.cpp",\n                   CSRC / "bgzf.h")') in text
     assert '"libflagstats_tpu"' not in text
 
 
-def test_columns_source_reaches_the_readers_only_through_the_copies():
-    """The port's own flag_columns.cpp includes the two reader copies
-    (whose internal range machinery it needs) and nothing else local;
-    it is not a copy, so the JAX package has no such file."""
-    src = (COPY / "flag_columns.cpp").read_bytes()
-    assert re.findall(rb'#include "([^"]*)"', src) == [b"bam_reader.cpp", b"sam_reader.cpp"]
-    assert not (ORIGINAL / "flag_columns.cpp").exists()
+@pytest.mark.parametrize("name,copies", [("flag_columns.cpp", [b"bam_reader.cpp",
+                                                                b"sam_reader.cpp"]),
+                                          ("cram_columns.cpp", [b"cram_reader.cpp"])])
+def test_columns_source_reaches_the_readers_only_through_the_copies(name, copies):
+    """The port's own column sources include the reader copies whose
+    internal machinery they need (flag_columns.cpp the BAM and SAM
+    readers, cram_columns.cpp the CRAM walker) and nothing else local;
+    they are not copies, so the JAX package has no such files."""
+    src = (COPY / name).read_bytes()
+    assert re.findall(rb'#include "([^"]*)"', src) == copies
+    assert not (ORIGINAL / name).exists()
 
 
 def test_package_data_ships_the_copies():
