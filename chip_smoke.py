@@ -16,9 +16,13 @@ kernel against its plain torch version and the host oracles at edge
 sizes, drives the public entry points at full scale (64Mi full-range
 words, the 824,541,892-word synthetic NA12878 column, and that column
 written as a framed LZ4 file of ~0.83 GB in a temporary directory and
-streamed back through flagstat_stream, then counted by the data-parallel
-path: two shards on the card, two gloo worker processes over the file,
-and a one-rank NCCL group), times each kernel against its plain version
+streamed back through flagstat_stream, whose device impls decode runs
+of whole frames straight into pinned slots (each impl twice with its
+SectionTimer table, and the cuda impl once more at 4Mi and 64Mi words
+a run beside the 16Mi default, and with one and two decode calls in
+flight beside the default four), then counted by the data-parallel path:
+two shards on the card, two gloo worker processes over the file, each
+leg's wall a rank beside its native twin's, and a one-rank NCCL group), times each kernel against its plain version
 with CUDA events, and prints one JSON line of kernel results, the card's
 name and power limit, and last, one JSON line {"ok": true, "device":
 {...}}. Any failed phase raises, and the script exits nonzero with no
@@ -100,6 +104,7 @@ from libflagstats_tpu_torch.datasets import na12878_report_values, synth_na12878
 from libflagstats_tpu_torch.io import bamio, cramio, samio
 from libflagstats_tpu_torch.io import codec as C
 from libflagstats_tpu_torch.io import native_lib
+from libflagstats_tpu_torch.io import stream as S
 from libflagstats_tpu_torch.io.stream import StreamCheckpoint
 from libflagstats_tpu_torch.ops import bitslice as B
 from libflagstats_tpu_torch.ops import cuda_build
@@ -590,6 +595,10 @@ def check_stream(path, label: str, impl: str, report: bool, card: str, want_repo
               f"{n / wall / 1e9:.3f} Gwords/s; sections:")
         for line in timer.report().splitlines():
             print(f"    {line}")
+        # the device stream decodes whole frames straight into its slots
+        assert "chunk_copy" not in timer.totals, (label, timer.totals)
+        if impl != "native":
+            assert "decode" in timer.totals, (label, timer.totals)
 
 
 def drive_stream_path(na_words: np.ndarray, card: str, tmp: str) -> str:
@@ -622,6 +631,22 @@ def drive_stream_path(na_words: np.ndarray, card: str, tmp: str) -> str:
     print("main path (f): flagstat_stream over the NA12878 LZ4 file: cuda_pre, "
           "cuda_pre report=True, cuda, the default (cuda) and native reports = "
           "na12878_report_values(1)")
+    # CONFIG.stream_chunk_words beside its default, and fewer decode
+    # calls in flight than stream.DECODE_CALLS: one cuda run each
+    calls = S.DECODE_CALLS
+    for words, n_calls in ((4 << 20, calls), (64 << 20, calls), (None, 1), (None, 2)):
+        S.DECODE_CALLS = n_calls
+        try:
+            t0 = time.perf_counter()
+            c = L.flagstat_stream(path, "lz4", impl="cuda", chunk_words=words)
+            wall = time.perf_counter() - t0
+        finally:
+            S.DECODE_CALLS = calls
+        assert L.counters_to_report(c) == want_report, (words, n_calls)
+        print(f"[{card}] flagstat_stream cuda chunk_words={words or CONFIG.stream_chunk_words}, "
+              f"{n_calls} decode calls in flight (defaults {CONFIG.stream_chunk_words}, "
+              f"{calls}): {wall:.3f} s wall")
+    launched(seen, "flagstat")
 
     # an interrupted, checkpointed run on a truncated copy, resumed on
     # the whole file (blocks of 8 groups = one chunk, so every block
@@ -691,11 +716,13 @@ from libflagstats_tpu_torch.parallel import multihost as M
 rdv, rank, path = sys.argv[1], int(sys.argv[2]), sys.argv[3]
 M.initialize(init_method="file://" + rdv, world_size=2, rank=rank, backend="gloo")
 legs = {}
-for impl in ("cuda", "cuda_words"):
+# the first leg is the worker's first card call; "cuda" again is warm
+for label, impl in (("cuda (first call)", "cuda"), ("cuda", "cuda"), ("cuda_pre", "cuda_pre"),
+                    ("cuda_words", "cuda_words"), ("native", "native")):
     dist.barrier()
     t0 = time.perf_counter()
     c = M.flagstat_multihost_file(path, "lz4", impl=impl)
-    legs[impl] = {"counters": c.tolist(), "wall_s": time.perf_counter() - t0}
+    legs[label] = {"counters": c.tolist(), "wall_s": time.perf_counter() - t0}
 bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "libflagstats_tpu"))
 assert not bad, bad
 dist.destroy_process_group()
@@ -768,12 +795,13 @@ def drive_parallel_path(na_words: np.ndarray, na_path: str, tmp: str, card: str)
         res = json.loads(out.strip().splitlines()[-1])
         for impl, leg in res["legs"].items():
             check_na12878(np.array(leg["counters"], np.uint64), want, f"rank {rank} {impl}")
-            print(f"[{card}] main path (h-ii): rank {rank} of 2 (gloo, cuda:0) "
-                  f"flagstat_multihost_file(NA12878 LZ4, impl={impl!r}) = "
-                  f"na12878_report_values(1); {leg['wall_s']:.3f} s")
+        print(f"[{card}] main path (h-ii): rank {rank} of 2 (gloo, cuda:0) "
+              "flagstat_multihost_file(NA12878 LZ4) = na12878_report_values(1) in every "
+              "leg; its walls: " + ", ".join(f"{impl} {leg['wall_s']:.3f} s"
+                                            for impl, leg in res["legs"].items()))
         for mode, n in res["launches"].items():
             workers[mode] += n
-    assert workers["flagstat"] > 0 and workers["words"] > 0, workers
+    assert all(workers[m] > 0 for m in ("flagstat", "pre", "words")), workers
     print(f"two-process leg: {wall:.2f} s wall for both workers, start-up included; "
           f"worker launches {workers}")
     ranks = run_ranks(NCCL_SAME_CARD_PROBE, os.path.join(tmp, "rdv_nccl"), timeout=180)

@@ -52,9 +52,13 @@ class SectionTimer:
         try:
             yield
         finally:
-            dt = time.perf_counter() - t0
-            self.totals[name] = self.totals.get(name, 0.0) + dt
-            self.counts[name] = self.counts.get(name, 0) + 1
+            self.add(name, time.perf_counter() - t0)
+
+    def add(self, name: str, seconds: float) -> None:
+        """Accumulate one section timed elsewhere (e.g. on a worker
+        thread, whose time the owner adds when it takes the result)."""
+        self.totals[name] = self.totals.get(name, 0.0) + seconds
+        self.counts[name] = self.counts.get(name, 0) + 1
 
     def report(self) -> str:
         lines = []

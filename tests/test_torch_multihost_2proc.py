@@ -2,10 +2,14 @@
 two worker processes join a gloo process group through a file://
 rendezvous and run every leg, each checked against flagstat_numpy and
 the JAX package's flagstat_multihost_file(impl="xla") run in this
-process. The workers import no jax. The single-process legs run here.
-Exact."""
+process; the framed-file leg of the stream's impls also over unequal
+block ranges, and with a bad header or a corrupt payload in one rank's
+range, where every rank raises and none hangs. The workers import no
+jax. The single-process legs run here. Exact."""
 import concurrent.futures as cf
+import json
 import os
+import struct
 import subprocess
 import sys
 from pathlib import Path
@@ -23,15 +27,17 @@ from libflagstats_tpu_torch.parallel import multihost as M
 _REPO = str(Path(__file__).resolve().parent.parent)
 
 _WORKER = r'''
+import json
 import sys
 
 import numpy as np
 
+from libflagstats_tpu_torch.config import CONFIG
 from libflagstats_tpu_torch.ops import dispatch as D
 from libflagstats_tpu_torch.oracle import generate_flags
 from libflagstats_tpu_torch.parallel import multihost as M
 
-rdv, rank, path, out = sys.argv[1], int(sys.argv[2]), sys.argv[3], sys.argv[4]
+rdv, rank, path, out, odd = sys.argv[1], int(sys.argv[2]), sys.argv[3], sys.argv[4], sys.argv[5]
 assert M.initialize(init_method="file://" + rdv, world_size=2, rank=rank, backend="gloo")
 assert M._world() == (2, rank)
 legs = {}
@@ -40,6 +46,27 @@ legs = {}
 # plain version and the default device tier on the CPU
 for impl in ("cuda", "cuda_words", "cuda_pre", None):
     legs[f"file_{impl}"] = M.flagstat_multihost_file(path, "lz4", impl=impl, device="cpu")
+
+# the stream's impls over unequal block ranges (21 and 20 frames), in
+# runs of two frames: several runs a rank
+chunk = CONFIG.stream_chunk_words
+CONFIG.stream_chunk_words = 2 * 65536
+for impl in ("torch", "cuda", "cuda_pre"):
+    legs[f"odd_{impl}"] = M.flagstat_multihost_file(odd, "lz4", impl=impl, device="cpu")
+CONFIG.stream_chunk_words = chunk
+
+# a bad header or a corrupt payload in rank 1's range: every rank raises,
+# and the group stays in step for the collectives below
+errors = {}
+for fault in ("bad_header", "bad_payload"):
+    for impl in ("torch", "cuda", "cuda_pre"):
+        try:
+            M.flagstat_multihost_file(odd + "." + fault, "lz4", impl=impl, device="cpu")
+            errors[f"{fault}_{impl}"] = None
+        except (ValueError, RuntimeError) as e:
+            errors[f"{fault}_{impl}"] = f"{type(e).__name__}: {e}"
+with open(out + ".json", "w") as f:
+    json.dump(errors, f)
 
 # equal shards, total_words=None: the true total from an all-reduce
 local = generate_flags(250_000, seed=100 + rank, full_range=True)
@@ -80,10 +107,27 @@ dist.destroy_process_group()
 '''
 
 
+def _framed_with(path, dst, i, fault):
+    """A copy of a framed file with frame i's header or payload made bad."""
+    frames = list(jC.iter_framed(path))
+    with open(dst, "wb") as f:
+        for k, (raw_len, payload) in enumerate(frames):
+            if k == i and fault == "bad_header":
+                f.write(struct.pack("<ii", raw_len, -len(payload)))
+            else:
+                f.write(struct.pack("<ii", raw_len, len(payload)))
+            f.write(b"\xff" * len(payload) if k == i and fault == "bad_payload" else payload)
+
+
 def test_two_process_multihost(tmp_path):
     x = generate_flags(2_000_000, seed=61, full_range=True)
     path = tmp_path / "mh.lz4"
     jC.write_framed(path, x, codec="lz4", level=1)
+    x_odd = generate_flags(2_030_001, seed=63, full_range=True)
+    odd = tmp_path / "odd.lz4"
+    jC.write_framed(odd, x_odd, codec="lz4", level=1, block_bytes=100_000)   # 41 frames
+    for fault in ("bad_header", "bad_payload"):
+        _framed_with(odd, f"{odd}.{fault}", 30, fault)                      # rank 1's range
     script = tmp_path / "worker.py"
     script.write_text(_WORKER)
     env = dict(os.environ)
@@ -92,7 +136,7 @@ def test_two_process_multihost(tmp_path):
     # a file:// rendezvous needs no port, so there is no port race to retry
     procs = [subprocess.Popen(
         [sys.executable, str(script), str(tmp_path / "rendezvous"), str(rank), str(path),
-         str(tmp_path / f"out{rank}.npz")],
+         str(tmp_path / f"out{rank}.npz"), str(odd)],
         stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, env=env)
         for rank in range(2)]
     try:
@@ -111,6 +155,8 @@ def test_two_process_multihost(tmp_path):
     ref = flagstat_numpy(x).astype(np.int64)
     jax_file = jM.flagstat_multihost_file(path, codec="lz4", impl="xla").astype(np.int64)
     np.testing.assert_array_equal(jax_file, ref)
+    jax_odd = jM.flagstat_multihost_file(odd, codec="lz4", impl="xla").astype(np.int64)
+    np.testing.assert_array_equal(jax_odd, flagstat_numpy(x_odd).astype(np.int64))
 
     def both(n0, n1, seed):
         return flagstat_numpy(np.concatenate([
@@ -125,6 +171,18 @@ def test_two_process_multihost(tmp_path):
                 np.testing.assert_array_equal(z[leg], jax_file, err_msg=f"{leg}, rank {rank}")
             for leg, w in want.items():
                 np.testing.assert_array_equal(z[leg], w, err_msg=f"{leg}, rank {rank}")
+            for impl in ("torch", "cuda", "cuda_pre"):
+                np.testing.assert_array_equal(z[f"odd_{impl}"], jax_odd,
+                                              err_msg=f"odd_{impl}, rank {rank}")
+    # a bad header fails every rank's scan alike; a corrupt payload fails
+    # rank 1's decode (decompress_block's error), and rank 0 names rank 1
+    errors = [json.loads((tmp_path / f"out{rank}.npz.json").read_text()) for rank in range(2)]
+    for impl in ("torch", "cuda", "cuda_pre"):
+        assert errors[0][f"bad_header_{impl}"] == errors[1][f"bad_header_{impl}"] == \
+            "ValueError: corrupt frame header (negative length)"
+        assert errors[1][f"bad_payload_{impl}"] == "RuntimeError: lz4 decompress failed"
+        assert errors[0][f"bad_payload_{impl}"] == \
+            "ValueError: flagstat_multihost_file: the walk failed on rank(s) [1]"
 
 
 @pytest.mark.parametrize("impl", ["cuda", "cuda_words", "torch"])
