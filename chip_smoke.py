@@ -68,8 +68,15 @@ K3, K2 and K6 on random ragged sizes), codegen, alignment_study,
 codec_sweep_na12878 at 1/128 of NA12878, multihost_scaling over the
 NA12878 LZ4 file and 4k's realistic BAM and BGZF SAM, instrumented's
 perf_native block, and graft_entry's entry() and dryrun_multichip(4) on
-the card. Every phase prints what it took, the kernel checks each of
-3-3e too, and the run prints its own seconds before the result lines.
+the card. Phase 4n runs the framed-file leg of multihost in two gloo
+worker processes on the card with a corrupt payload in rank 1's range,
+through cuda_words and native: rank 1 raises its own error, rank 0 one
+that names rank 1, both within seconds. Phase 5f runs the torch_matmul
+pospopcnt tier (a torch._int_mm GEMM, not a kernel of the port) at 64Mi
+words and on the NA12878 column against K5 and the host count, times it
+beside K5 and prints its rows as a JSON line of their own. Every phase
+prints what it took, the kernel checks each of 3-3e too, and the run
+prints its own seconds before the result lines.
 The host oracle of a large column runs in pieces on a thread pool, and
 that of one repeated word as its counters times the length (exact).
 """
@@ -112,6 +119,7 @@ from libflagstats_tpu_torch.ops import dispatch as D
 from libflagstats_tpu_torch.ops import kernels as K
 from libflagstats_tpu_torch.ops import probe_kernels as P
 from libflagstats_tpu_torch.ops import setalgebra as SA
+from libflagstats_tpu_torch.ops import torch_ops as T
 from libflagstats_tpu_torch.ops import words_kernels as W
 from libflagstats_tpu_torch.ops.torch_ops import assemble_counters
 from libflagstats_tpu_torch.oracle import flagstat_numpy, generate_flags
@@ -160,9 +168,10 @@ NA12878_SKIP = [F.FREVERSE_OFF, F.FMREVERSE_OFF, 16 + F.FREVERSE_OFF, 16 + F.FMR
 #: in-memory entry points, 4e (e-f) streaming, 4g word space, 4h
 #: data-parallel, 4i measurement, 4j tools, 4k container files, 4l CRAM
 #: files, the container legs and na12878_run, 4m the last tools,
-#: perf_native and the entry points, 5-5e kernel times
+#: perf_native and the entry points, 4n a bad range of the framed-file
+#: leg in two ranks, 5-5e kernel times, 5f the torch_matmul pospopcnt tier
 PHASES = ("3", "3b", "3c", "3d", "3e", "4a", "4e", "4g", "4h", "4i", "4j", "4k", "4l", "4m",
-          "5", "5b", "5c", "5d", "5e")
+          "4n", "5", "5b", "5c", "5d", "5e", "5f")
 #: K6's word distributions of phase 5c at 64Mi: full-range words (a
 #: lookup's bank is a word's low 5 bits: ~3-4-way conflicts), real flags
 #: below 4096, and one repeated flag (99, NA12878's most common; every
@@ -174,6 +183,9 @@ PHASES = ("3", "3b", "3c", "3d", "3e", "4a", "4e", "4g", "4h", "4i", "4j", "4k",
 CONTAINER_MIN_BAM_WORDS = 103_067_736
 CONTAINER_WORDS = 1 << 22
 CONTAINER_LEVEL = 1
+#: phase 5f's chunks of the torch_matmul tier, timed at 64Mi beside
+#: dispatch.MATMUL_CHUNK's
+MATMUL_CHUNKS = (1 << 20, 1 << 24)
 WORDS_DISTRIBUTIONS = (("full-range", lambda n: generate_flags(n, seed=11, full_range=True)),
                        ("flags<4096", lambda n: generate_flags(n, seed=11, full_range=False)),
                        ("one value", lambda n: np.full(n, 99, np.uint16)))
@@ -189,6 +201,14 @@ def card_line() -> str:
 def pospopcnt_np(x: np.ndarray) -> np.ndarray:
     x32 = x.astype(np.uint32)
     return np.array([np.count_nonzero((x32 >> k) & 1) for k in range(16)], np.int64)
+
+
+def pospopcnt_hist(x: np.ndarray) -> np.ndarray:
+    """pospopcnt_np by a histogram of the words: one pass over a large
+    column, then each of the 65536 values' bits times its count (exact)."""
+    hist = np.bincount(x, minlength=1 << 16).astype(np.int64)
+    bits = (np.arange(1 << 16)[:, None] >> np.arange(16)) & 1
+    return hist @ bits
 
 
 def counters_from_sums(sums: torch.Tensor, mode: str, n: int) -> np.ndarray:
@@ -743,6 +763,41 @@ dist.destroy_process_group()
 '''
 
 
+#: one rank of phase 4n: a gloo group with a 60 s timeout, both ranks on
+#: cuda:0; rank 1's range of the bad file holds a corrupt payload; prints
+#: one JSON line
+FAULT_WORKER = r'''
+import datetime, json, sys, time
+import torch.distributed as dist
+from libflagstats_tpu_torch.ops import kernels as K
+from libflagstats_tpu_torch.parallel import multihost as M
+
+rdv, rank, good, bad = sys.argv[1], int(sys.argv[2]), sys.argv[3], sys.argv[4]
+M.initialize(init_method="file://" + rdv, world_size=2, rank=rank, backend="gloo",
+             timeout=datetime.timedelta(seconds=60))
+faults = {}
+for impl in ("cuda_words", "native"):
+    dist.barrier()
+    t0 = time.perf_counter()
+    try:
+        M.flagstat_multihost_file(bad, "lz4", impl=impl)
+        error = None
+    except (ValueError, RuntimeError) as e:
+        error = f"{type(e).__name__}: {e}"
+    faults[impl] = {"error": error, "wall_s": time.perf_counter() - t0}
+# the group is still in step: the good file, counted on the card
+good_counters = M.flagstat_multihost_file(good, "lz4", impl="cuda_words").tolist()
+mods = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "libflagstats_tpu"))
+assert not mods, mods
+dist.destroy_process_group()
+print(json.dumps({"rank": rank, "faults": faults, "good": good_counters,
+                  "launches": K.LAUNCHES}))
+'''
+#: what each rank of phase 4n raises: rank 1 its own decode error, rank 0
+#: the agreement's error naming rank 1
+FAULT_AGREED = "ValueError: flagstat_multihost_file: the walk failed on rank(s) [1]"
+
+
 def run_ranks(code: str, rdv: str, args: tuple = (), timeout: int = 300) -> list:
     """Two processes of ``code`` with arguments (rdv, rank, *args), pipes
     drained at once -> [(returncode, stdout, stderr)] per rank. Kills
@@ -823,6 +878,51 @@ def drive_parallel_path(na_words: np.ndarray, na_path: str, tmp: str, card: str)
         torch.distributed.destroy_process_group()
     print("main path (h-iii): flagstat_multihost(64Mi words) in a one-rank NCCL group, "
           "impl cuda and cuda_words = oracle")
+    return workers
+
+
+def drive_fault_path(tmp: str, card: str) -> dict:
+    """Phase 4n: the framed-file leg of multihost with a corrupt payload
+    in rank 1's block range, in two gloo worker processes on the card,
+    for ``cuda_words`` (the range's column, then K6) and ``native`` (the
+    fused host walker): rank 1 raises its own error, rank 0 one naming
+    rank 1, both within seconds, and the group then counts a good file.
+    Returns the launches the workers counted."""
+    x = generate_flags(CONTAINER_WORDS, seed=41, full_range=True)
+    good = os.path.join(tmp, "fault.lz4")
+    C.write_framed(good, x, "lz4", level=1, block_bytes=1 << 20)
+    frames = list(C.iter_framed(good))
+    bad = good + ".bad_payload"
+    with open(bad, "wb") as f:
+        for k, (raw_len, payload) in enumerate(frames):
+            f.write(struct.pack("<ii", raw_len, len(payload)))
+            # the last frame lies in rank 1's range of the two
+            f.write(b"\xff" * len(payload) if k == len(frames) - 1 else payload)
+    own = {"cuda_words": "RuntimeError: framed range decode failed",
+           "native": f"ValueError: malformed or undecodable framed stream: {bad}"}
+    ref = oracle_counts(x)
+    t0 = time.perf_counter()
+    ranks = run_ranks(FAULT_WORKER, os.path.join(tmp, "rdv_fault"), (good, bad), timeout=240)
+    wall = time.perf_counter() - t0
+    workers = dict.fromkeys(K.LAUNCHES, 0)
+    for rank, (rc, out, err) in enumerate(ranks):
+        assert rc == 0, f"fault worker {rank} failed (rc {rc}):\n{err[-4000:]}"
+        res = json.loads(out.strip().splitlines()[-1])
+        for impl, fault in res["faults"].items():
+            want = own[impl] if rank == 1 else FAULT_AGREED
+            assert fault["error"] == want, (rank, impl, fault, want)
+            assert fault["wall_s"] < 30, (rank, impl, fault)
+        assert (np.array(res["good"], np.uint64) == ref).all(), (rank, res["good"])
+        print(f"[{card}] fault path (4n): rank {rank} of 2 (gloo, 60 s group timeout, cuda:0), "
+              f"{len(frames)} frames, the last one's payload corrupt: " + "; ".join(
+                  f"{impl} raised {f['error']!r} after {f['wall_s']:.3f} s"
+                  for impl, f in res["faults"].items())
+              + "; then the good file's cuda_words count = oracle")
+        for mode, n in res["launches"].items():
+            workers[mode] += n
+    assert workers["words"] > 0, workers
+    print(f"fault path (4n): {wall:.2f} s wall for both workers, start-up included; "
+          f"worker launches {workers}")
     return workers
 
 
@@ -1638,6 +1738,70 @@ def time_fold_and_setop(na_words: np.ndarray, card: str) -> dict:
     return times
 
 
+def time_matmul_tier(na_words: np.ndarray, card: str) -> dict:
+    """Phase 5f: the "torch_matmul" pospopcnt tier, a library GEMM
+    (torch._int_mm on the tensor cores) and no kernel of the port, at
+    64Mi full-range words and on the NA12878 column: through the entry
+    point on the card, held against K5 and the host count
+    (max_abs_err 0), then timed beside K5 by CUDA events (median_ms),
+    and its device launches per call counted in a profiler trace.
+    Prints its rows as one JSON line of their own."""
+    from torch.profiler import ProfilerActivity, profile
+
+    rows = []
+    x64 = generate_flags(WORDS_64MI, seed=11, full_range=True)
+    for label, words in (("64Mi", x64), ("NA12878", na_words)):
+        want = pospopcnt_hist(words)
+        if label == "64Mi":
+            assert (pospopcnt_np(words) == want).all()
+        x = torch.from_numpy(words).cuda()
+        got = L.pospopcnt_u16(x, impl="torch_matmul").astype(np.int64)
+        k5 = K.stream_sums_cuda(x, "pospopcnt").cpu().numpy().astype(np.int64)
+        err = int(max(np.abs(got - want).max(), np.abs(got - k5).max()))
+        assert err == 0 and (k5 == want).all(), (label, got, k5, want)
+
+        def tier():
+            return T.pospopcnt_u16_matmul(x, chunk=D.MATMUL_CHUNK)
+
+        ms = median_ms(tier, 5, 2)
+        k5_ms = median_ms(lambda: K.stream_sums_cuda(x, "pospopcnt"), 7, 10)
+        # the step's size against the dispatch's choice, at 64Mi only
+        chunk_ms = {c: median_ms(lambda: T.pospopcnt_u16_matmul(x, chunk=c), 5, 2)
+                    for c in MATMUL_CHUNKS} if label == "64Mi" else {}
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            tier()
+            torch.cuda.synchronize()
+        device_events = [e for e in prof.events()
+                         if e.device_type == torch.autograd.DeviceType.CUDA]
+        gemms = sorted({e.name for e in device_events if "gemm" in e.name.lower()
+                        or "imma" in e.name.lower() or "cutlass" in e.name.lower()})
+        # where a call's device time goes: us summed per kernel name
+        by_kernel = {}
+        for e in device_events:
+            key = e.name[:60]
+            by_kernel[key] = by_kernel.get(key, 0.0) + e.time_range.elapsed_us()
+        n = x.numel()
+        row = {"name": "pospopcnt_u16_matmul", "route": "library GEMM (torch._int_mm), "
+               "not a kernel of the port", "source": "libflagstats_tpu_torch/ops/torch_ops.py",
+               "replaces": "libflagstats_tpu/ops/xla_ops.py:98", "shape": label, "words": n,
+               "chunk": D.MATMUL_CHUNK, "steps": -(-n // D.MATMUL_CHUNK),
+               "launches_per_call": len(device_events) or "not measured",
+               "gemm_kernels": gemms[:4],
+               "device_us_by_kernel": dict(sorted(by_kernel.items(), key=lambda kv: -kv[1])),
+               "max_abs_err": err, "ms": ms, "k5_ms": k5_ms,
+               "bound_ms": bound_ms(2 * n, 16), "bound_by": "bytes", "chunk_ms": chunk_ms}
+        rows.append(row)
+        print(f"[{card}] {label} {n} words, torch_matmul (library GEMM, not a kernel of the "
+              f"port): {ms:.4f} ms, K5 {k5_ms:.4f} ms, bound {row['bound_ms']:.4f} ms; "
+              f"{row['steps']} steps of {D.MATMUL_CHUNK} words, "
+              f"{row['launches_per_call']} device launches a call; = K5 = host count"
+              + "".join(f"; chunk {c}: {t:.4f} ms" for c, t in chunk_ms.items()))
+        del x
+    print(json.dumps({"library_gemm": rows}))
+    return rows
+
+
 @contextlib.contextmanager
 def phase(name: str):
     """Print what a phase took (host clock), so a run says where its time went."""
@@ -1802,8 +1966,15 @@ def main(argv=None) -> int:
             assert all(last_launches[m] > 0 for m in ("flagstat", "flagstat_report", "pre",
                                                        "words")), last_launches
 
+        if "4n" in run:
+            zero_launches()
+            with phase("4n, a bad range of the framed-file leg in two ranks"):
+                workers = drive_fault_path(tmp, card)
+            print(f"fault-path launches (phase 4n): this process {dict(K.LAUNCHES)}, "
+                  f"its workers' {workers}")
+
     timers = {"5": time_kernels, "5b": time_pre_kernel, "5c": time_words_kernel,
-              "5d": time_probe_kernels, "5e": time_fold_and_setop}
+              "5d": time_probe_kernels, "5e": time_fold_and_setop, "5f": time_matmul_tier}
     results = {}
     with phase("5-5e, kernel times"):
         for name, timer in timers.items():

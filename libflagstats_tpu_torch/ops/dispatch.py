@@ -29,8 +29,9 @@ kernel masks its own ragged edge, so nothing is padded on the host.
 
 ``impl="native"`` (the host AVX2 kernels of the native library),
 ``impl="cuda_pre"`` (host packed bit transpose, then the plane-tile
-kernel) and ``impl="cuda_words"`` (the word-space kernel K6) are chosen
-by name only.
+kernel), ``impl="cuda_words"`` (the word-space kernel K6) and, for
+``pospopcnt_u16``, ``impl="torch_matmul"`` (an int8 ones-matrix product
+on the tensor cores) are chosen by name only.
 """
 from __future__ import annotations
 
@@ -42,7 +43,7 @@ from ..oracle import flagstat_numpy
 from . import native_host
 from .bitslice import pretranspose_host_packed
 from .kernels import flagstat_cuda, flagstat_cuda_pre, packed_rows_for, pospopcnt_u16_cuda
-from .torch_ops import as_words, flagstat_torch, pospopcnt_u16_torch
+from .torch_ops import as_words, flagstat_torch, pospopcnt_u16_matmul, pospopcnt_u16_torch
 from .words_kernels import flagstat_cuda_words
 
 #: implementation registry
@@ -66,7 +67,14 @@ POSPOPCNT_IMPLS = {
     "native": "host AVX2 Harley-Seal kernel (native C++ library)",
     "torch": "packed-SWAR shift-mask-reduce in plain torch",
     "cuda": "bit-sliced register transpose + popcount CUDA kernel (sm_90a)",
+    "torch_matmul": "int8 bit expansion + a ones-matrix product on the tensor cores "
+                    "(torch._int_mm, int32 accumulation)",
 }
+
+#: the chunk of words ``"torch_matmul"`` expands and reduces per step:
+#: 64 MiB of int8 bits, 16 steps for 64Mi words (the JAX default, 1 << 17,
+#: would be 512 steps of 6 device launches each)
+MATMUL_CHUNK = 1 << 22
 
 #: one device call counts at most this many words; the entry points split
 #: longer streams into accumulating sub-calls. Exact by the block-
@@ -135,8 +143,10 @@ def pospopcnt_auto_impl(n_len: int, device=None) -> str:
 def _target_device(impl: str, device, words: torch.Tensor) -> torch.device:
     """Where a device tier computes: ``device`` if given; else the
     words' own device for "torch" or for words already on a CUDA device;
-    else the CUDA device. Raises when that is a CUDA device and none is
-    available: the kernel tiers never fall back to the plain version."""
+    else the CUDA device (so "torch_matmul", like the kernel tiers,
+    counts on the card unless asked for the CPU). Raises when that is a
+    CUDA device and none is available: the kernel tiers never fall back
+    to the plain version."""
     if device is None:
         device = words.device if impl == "torch" or words.device.type == "cuda" \
             else "cuda"
@@ -265,7 +275,8 @@ def pospopcnt_u16(array, impl: str | None = None, device=None) -> np.ndarray:
                         dtype=np.uint64)
     if impl == "native":
         return native_host.pospopcnt_native(_host_words(words))
-    fn = pospopcnt_u16_torch if impl == "torch" else pospopcnt_u16_cuda
+    fn = {"torch": pospopcnt_u16_torch, "cuda": pospopcnt_u16_cuda,
+          "torch_matmul": lambda w: pospopcnt_u16_matmul(w, chunk=MATMUL_CHUNK)}[impl]
     acc = np.zeros(F.N_BITS, dtype=np.uint64)
     for chunk in _device_chunks(words):
         w = as_words(chunk)

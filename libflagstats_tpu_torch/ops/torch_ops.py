@@ -4,7 +4,9 @@ The counterpart of ``libflagstats_tpu.ops.xla_ops``: the mask-select
 transform as packed-SWAR bitwise ops on two words per 32-bit lane, and
 the positional popcount as a shift-mask-sum per bit. It runs on any
 device torch runs on, and is the device-side differential baseline of
-the CUDA kernel.
+the CUDA kernel. ``pospopcnt_u16_matmul`` is the ``"torch_matmul"``
+tier: the positional popcount as an int8 bit expansion reduced by a
+ones-matrix product (the tensor cores on the card).
 
 torch has no unsigned 32-bit shifts on the CPU and no popcount, so
 lanes are int32 holding uint32 bits. Every right shift here is masked,
@@ -13,6 +15,7 @@ every subtraction stays inside int32.
 """
 from __future__ import annotations
 
+import math
 import warnings
 
 import numpy as np
@@ -142,3 +145,62 @@ def pospopcnt_u16_torch(x, n_bits: int = F.N_BITS) -> torch.Tensor:
     """Positional popcount of a uint16 stream -> (n_bits,) int64
     (the counterpart of ``xla_ops.pospopcnt_u16_xla``)."""
     return _bit_counts(_pack_lanes(x), n_bits)
+
+
+#: most words a row of the matmul tier's bit matrix: 1024 words x 16 bits
+#: = 16384 int8 columns, so the product has n wide enough to fill the
+#: card with output tiles, where a (32 x 256) output ran on two blocks
+_MM_MAX_ROW_WORDS = 1024
+#: rows of its ones matrix: torch._int_mm on CUDA needs more than 16
+_MM_ONES_ROWS = 32
+
+
+def pospopcnt_u16_matmul(x, n_bits: int = F.N_BITS, chunk: int = 1 << 17) -> torch.Tensor:
+    """Positional popcount by an int8 matrix product -> (n_bits,) int64,
+    on the device of ``x`` (the counterpart of
+    ``xla_ops.pospopcnt_u16_matmul``, the JAX package's MXU tier).
+
+    Per ``chunk`` words (zero words pad the last one; they count
+    nothing): each word's two bytes expand into an int8 (chunk, 16) bit
+    matrix by uint8 shifts (bit j of a word is bit j % 8 of its byte
+    j // 8, little-endian), which is then reduced by
+    ``torch._int_mm``, int8 x int8 accumulated in int32: a (32, k) ones
+    matrix times the bit matrix seen as (k, 16 w), w words a row (w =
+    gcd(chunk / 8, 1024), k = chunk / w). Row 0 of the (32, 16 w)
+    product, its w 16-column groups added, is the chunk's count; the
+    chunks' counts add up in int64. ``torch.matmul`` on int8 would
+    return int8 and wrap; the 32 rows, of which one is kept, and the
+    multiples of 8 are what ``_int_mm`` accepts on CUDA, and the CPU runs
+    the same layout.
+
+    ``chunk`` follows the JAX function: max(128, min(chunk, n rounded up
+    to 128)). It bounds the bit matrix at 16 bytes a word of the chunk;
+    any chunk gives the same counts, so one not a multiple of 128 is
+    rounded up to one (k must be a multiple of 8). The default is the
+    JAX function's, 1 << 17 words; ``ops.dispatch`` calls it with
+    ``MATMUL_CHUNK`` (1 << 22) so that a column of 64Mi words is 16
+    steps, not 512."""
+    if not 0 < n_bits <= F.N_BITS:
+        raise ValueError(f"n_bits must be in 1..{F.N_BITS}, got {n_bits}")
+    words = as_words(x)
+    n = words.numel()
+    chunk = max(128, min(chunk, -(-n // 128) * 128))
+    chunk = -(-chunk // 128) * 128
+    dev = words.device
+    acc = torch.zeros(F.N_BITS, dtype=torch.int64, device=dev)
+    if n == 0:
+        return acc[:n_bits]
+    row_words = math.gcd(chunk // 8, _MM_MAX_ROW_WORDS)
+    k = chunk // row_words
+    shifts = torch.arange(8, dtype=torch.uint8, device=dev)
+    ones = torch.ones(_MM_ONES_ROWS, k, dtype=torch.int8, device=dev)
+    bits = torch.empty(chunk, 2, 8, dtype=torch.uint8, device=dev)
+    for start in range(0, n, chunk):
+        part = words[start:start + chunk]
+        if part.numel() < chunk:
+            part = torch.nn.functional.pad(part, (0, chunk - part.numel()))
+        torch.bitwise_right_shift(part.view(torch.uint8).view(chunk, 2, 1), shifts, out=bits)
+        bits.bitwise_and_(1)
+        prod = torch._int_mm(ones, bits.view(torch.int8).view(k, row_words * F.N_BITS))
+        acc += prod[0].view(row_words, F.N_BITS).sum(0)
+    return acc[:n_bits]

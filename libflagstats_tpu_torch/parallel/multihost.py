@@ -199,40 +199,46 @@ def flagstat_multihost_file(path, codec: str | int = "lz4", impl: str | None = N
     device stream's loop (io/stream.framed_range_sums: runs of whole
     frames decoded straight into its pinned slots), and the int64
     (C[k], F[k]) sums merge in one all-reduce; counter 9 is derived once,
-    after it, from the global word count. A local ``ValueError`` or a
-    failed decode reaches the ranks' exchange as ok=0 first, and every
-    rank raises. Other sharded impls (``"cuda_words"``) decode the range
-    into a column and count it with ``flagstat_multihost``.
-    ``impl="native"``, asked for by name: each rank runs the fused C++
-    decode+count over its byte range, and only the 32 counters cross
-    processes."""
+    after it, from the global word count. Other sharded impls
+    (``"cuda_words"``) decode the range into a column and count it with
+    ``flagstat_multihost``. ``impl="native"``, asked for by name: each
+    rank runs the fused C++ decode+count over its byte range, and only
+    the 32 counters cross processes. Whatever the impl, a local
+    ``ValueError`` or failed decode reaches the ranks' exchange as ok=0
+    before any collective that counts, and every rank raises: the failed
+    one its own error, the others one that names it."""
     if impl is None:
         impl = D.device_impl(device)
     frames = C.scan_frames(path)
     size, rank = _world()
     ranges = C.shard_block_ranges(len(frames), size)
     start, stop = ranges[rank]
+
+    def agreed(step, *args, **kwargs):
+        """``step(*args, **kwargs)``, returned once every rank's step is
+        known to have succeeded. A bad range or a failed decode (the
+        decoders raise RuntimeError for LZ4 and Zstd) must reach the
+        exchange as ok=0: raising here would leave the other ranks
+        waiting in a collective."""
+        out, err = None, None
+        try:
+            out = step(*args, **kwargs)
+        except (ValueError, RuntimeError) as e:
+            err = e
+        _agree(err, "flagstat_multihost_file")
+        return out
+
     if impl == "native":
-        local, _ = native_host.flagstat_framed_range_native(
-            path, C._codec_id(codec), start, stop, threads=n_threads, frames=frames)
+        local, _ = agreed(native_host.flagstat_framed_range_native, path,
+                          C._codec_id(codec), start, stop, threads=n_threads, frames=frames)
         return _global_counter_sum(local)
     words = [sum(r for _, r, _ in frames[a:b]) // 2 for a, b in ranges]
     if impl in S.DEVICE_IMPLS:
-        dev = _local_device(device)
-        sums, err = None, None
-        try:
-            sums = S.framed_range_sums(path, codec, start, stop, impl, threads=n_threads,
-                                       device=dev)
-        except (ValueError, RuntimeError) as e:
-            # a bad range or a failed decode (decompress_block raises
-            # RuntimeError for LZ4 and Zstd) must reach the exchange as
-            # ok=0: raising here would leave the other ranks waiting in
-            # the all-reduce
-            err = e
-        _agree(err, "flagstat_multihost_file")
+        sums = agreed(S.framed_range_sums, path, codec, start, stop, impl, threads=n_threads,
+                      device=_local_device(device))
         merged = _all_reduce_i64(torch.stack(sums))
         return assemble_counters(merged[0], merged[1], sum(words)).numpy().astype(np.uint64)
-    local = C.read_framed_range(path, codec, start, stop, n_threads=n_threads)
+    local = agreed(C.read_framed_range, path, codec, start, stop, n_threads=n_threads)
     return flagstat_multihost(local, total_words=sum(words), impl=impl,
                               pad_to_words=max(words), device=device)
 

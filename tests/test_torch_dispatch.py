@@ -138,4 +138,4 @@ def test_auto_impl_is_host_without_a_device():
     assert not hasattr(CONFIG, "cuda_min")
     assert set(D.FLAGSTAT_IMPLS) == {"numpy", "native", "torch", "cuda",
                                      "cuda_report", "cuda_pre", "cuda_words"}
-    assert set(D.POSPOPCNT_IMPLS) == {"numpy", "native", "torch", "cuda"}
+    assert set(D.POSPOPCNT_IMPLS) == {"numpy", "native", "torch", "cuda", "torch_matmul"}

@@ -27,6 +27,7 @@ from libflagstats_tpu_torch.parallel import multihost as M
 _REPO = str(Path(__file__).resolve().parent.parent)
 
 _WORKER = r'''
+import datetime
 import json
 import sys
 
@@ -38,7 +39,10 @@ from libflagstats_tpu_torch.oracle import generate_flags
 from libflagstats_tpu_torch.parallel import multihost as M
 
 rdv, rank, path, out, odd = sys.argv[1], int(sys.argv[2]), sys.argv[3], sys.argv[4], sys.argv[5]
-assert M.initialize(init_method="file://" + rdv, world_size=2, rank=rank, backend="gloo")
+# a short group timeout: a rank left waiting fails on gloo's timeout
+# well inside the test's own, not by a kill
+assert M.initialize(init_method="file://" + rdv, world_size=2, rank=rank, backend="gloo",
+                    timeout=datetime.timedelta(seconds=60))
 assert M._world() == (2, rank)
 legs = {}
 
@@ -59,9 +63,11 @@ CONFIG.stream_chunk_words = chunk
 # and the group stays in step for the collectives below
 errors = {}
 for fault in ("bad_header", "bad_payload"):
-    for impl in ("torch", "cuda", "cuda_pre"):
+    for impl in ("torch", "cuda", "cuda_pre", "cuda_words", "native"):
         try:
-            M.flagstat_multihost_file(odd + "." + fault, "lz4", impl=impl, device="cpu")
+            # native is a host impl: it takes no device
+            M.flagstat_multihost_file(odd + "." + fault, "lz4", impl=impl,
+                                      device=None if impl == "native" else "cpu")
             errors[f"{fault}_{impl}"] = None
         except (ValueError, RuntimeError) as e:
             errors[f"{fault}_{impl}"] = f"{type(e).__name__}: {e}"
@@ -175,12 +181,18 @@ def test_two_process_multihost(tmp_path):
                 np.testing.assert_array_equal(z[f"odd_{impl}"], jax_odd,
                                               err_msg=f"odd_{impl}, rank {rank}")
     # a bad header fails every rank's scan alike; a corrupt payload fails
-    # rank 1's decode (decompress_block's error), and rank 0 names rank 1
+    # rank 1's decode (its own error: decompress_block's, the range
+    # reader's or the fused walker's), and rank 0 names rank 1
     errors = [json.loads((tmp_path / f"out{rank}.npz.json").read_text()) for rank in range(2)]
-    for impl in ("torch", "cuda", "cuda_pre"):
+    own = {"torch": "RuntimeError: lz4 decompress failed",
+           "cuda": "RuntimeError: lz4 decompress failed",
+           "cuda_pre": "RuntimeError: lz4 decompress failed",
+           "cuda_words": "RuntimeError: framed range decode failed",
+           "native": f"ValueError: malformed or undecodable framed stream: {odd}.bad_payload"}
+    for impl, error in own.items():
         assert errors[0][f"bad_header_{impl}"] == errors[1][f"bad_header_{impl}"] == \
             "ValueError: corrupt frame header (negative length)"
-        assert errors[1][f"bad_payload_{impl}"] == "RuntimeError: lz4 decompress failed"
+        assert errors[1][f"bad_payload_{impl}"] == error
         assert errors[0][f"bad_payload_{impl}"] == \
             "ValueError: flagstat_multihost_file: the walk failed on rank(s) [1]"
 
