@@ -79,6 +79,13 @@ prints what it took, the kernel checks each of 3-3e too, and the run
 prints its own seconds before the result lines.
 The host oracle of a large column runs in pieces on a thread pool, and
 that of one repeated word as its counters times the length (exact).
+Phases 4a-d and 4h hold every call on a host column to the staging
+rings (ops/staging.py): as many pieces shipped as STAGE_WORDS cuts,
+one kernel launch a piece; they print the one-shot walls at 64Mi and on
+NA12878 beside impl="native", the ring's first allocation and the
+sharded walls. Phase 4s runs only when named: the staging's
+shake-downs (the host copy and DMA rates apart, the piece size, the
+copy, the transpose threads, cudaHostRegister of the caller's column).
 """
 from __future__ import annotations
 
@@ -119,9 +126,11 @@ from libflagstats_tpu_torch.ops import dispatch as D
 from libflagstats_tpu_torch.ops import kernels as K
 from libflagstats_tpu_torch.ops import probe_kernels as P
 from libflagstats_tpu_torch.ops import setalgebra as SA
+from libflagstats_tpu_torch.ops import staging as ST
 from libflagstats_tpu_torch.ops import torch_ops as T
 from libflagstats_tpu_torch.ops import words_kernels as W
 from libflagstats_tpu_torch.ops.torch_ops import assemble_counters
+from libflagstats_tpu_torch.parallel.sharded import shard_bounds
 from libflagstats_tpu_torch.oracle import flagstat_numpy, generate_flags
 from libflagstats_tpu_torch import graft_entry
 from libflagstats_tpu_torch.tools import (alignment_study, codec_sweep_na12878, codegen,
@@ -172,6 +181,9 @@ NA12878_SKIP = [F.FREVERSE_OFF, F.FMREVERSE_OFF, 16 + F.FREVERSE_OFF, 16 + F.FMR
 #: leg in two ranks, 5-5e kernel times, 5f the torch_matmul pospopcnt tier
 PHASES = ("3", "3b", "3c", "3d", "3e", "4a", "4e", "4g", "4h", "4i", "4j", "4k", "4l", "4m",
           "4n", "5", "5b", "5c", "5d", "5e", "5f")
+#: phases that run only when named: 4s, the staging's shake-downs (the
+#: piece size, the host copy, cudaHostRegister of the caller's column)
+SHAKEDOWNS = ("4s",)
 #: K6's word distributions of phase 5c at 64Mi: full-range words (a
 #: lookup's bank is a word's low 5 bits: ~3-4-way conflicts), real flags
 #: below 4096, and one repeated flag (99, NA12878's most common; every
@@ -522,38 +534,78 @@ def launched(before: dict, mode: str) -> None:
     before.update(K.LAUNCHES)
 
 
-def drive_main_path() -> dict:
-    """Phase 4: the public entry points at full scale."""
+def pieces_of(n: int, granule: int = 8) -> int:
+    """Pieces ops/staging.py cuts a host column of n words into."""
+    return -(-n // (max(ST.STAGE_WORDS // granule, 1) * granule))
+
+
+def staged(seen: dict, mode: str, pieces: int, fn):
+    """fn() through the staging rings: exactly ``pieces`` pieces shipped,
+    and as many launches of ``mode``'s kernel, one a piece."""
+    before = ST.STAGED["pieces"]
+    out = fn()
+    shipped, ran = ST.STAGED["pieces"] - before, K.LAUNCHES[mode] - seen[mode]
+    assert shipped == pieces == ran, (mode, shipped, pieces, ran)
+    seen.update(K.LAUNCHES)
+    return out
+
+
+def walls_beside_native(fn, native, runs: int = 3) -> tuple[float, float]:
+    """Least host walls of fn() and native(), in turns (fn, native, ...),
+    the card synchronised before each clock stops."""
+    best = [float("inf")] * 2
+    for _ in range(runs):
+        for k, g in enumerate((fn, native)):
+            t0 = time.perf_counter()
+            g()
+            torch.cuda.synchronize()
+            best[k] = min(best[k], time.perf_counter() - t0)
+    return best[0], best[1]
+
+
+def drive_main_path(card: str) -> dict:
+    """Phase 4: the public entry points at full scale; every call on a
+    host column goes through the staging rings, one K1 launch a piece."""
     seen = dict(K.LAUNCHES)
     x, ref = words_64mi()
     assert D.auto_impl(x.size) == D.auto_impl(1) == D.auto_impl(0) == "cuda"
+    n64 = pieces_of(x.size)
 
     # (a) 64Mi full-range words, from the host and from a device tensor
-    c = L.flagstats_u16(x)
-    launched(seen, "flagstat")
+    c = staged(seen, "flagstat", n64, lambda: L.flagstats_u16(x))
     assert (c == ref).all(), (c, ref)
+    ring = ST.ring("cuda:0")
+    print(f"[{card}] staging ring of cuda:0: {ST.DEPTH} pinned slots of {ST.STAGE_WORDS} "
+          f"words ({ST.DEPTH * ST.STAGE_WORDS * 2} bytes), made by the first call in "
+          f"{ring.alloc_seconds * 1e3:.3f} ms")
     xd = torch.from_numpy(x).cuda()
+    pieces = ST.STAGED["pieces"]
     assert (L.flagstats_u16(xd) == ref).all()
+    # words on the card are counted where they lie: one launch, no piece
+    assert ST.STAGED["pieces"] == pieces and K.LAUNCHES["flagstat"] == seen["flagstat"] + 1
     launched(seen, "flagstat")
-    r = L.flagstats_u16(x, impl="cuda_report")
-    launched(seen, "flagstat_report")
+    r = staged(seen, "flagstat_report", n64, lambda: L.flagstats_u16(x, impl="cuda_report"))
     idx = list(F.REPORT_COUNTERS)
     assert (r[idx] == ref[idx]).all() and (r[REPORT_ZEROS] == 0).all()
-    p = L.pospopcnt_u16(x)
-    launched(seen, "pospopcnt")
+    p = staged(seen, "pospopcnt", n64, lambda: L.pospopcnt_u16(x))
     assert (p.astype(np.int64) == pospopcnt_np(x)).all()
     assert (L.pospopcnt_u16(x, impl="native") == p).all()
-    d = L.flagstats(x)
-    launched(seen, "flagstat")
+    d = staged(seen, "flagstat", n64, lambda: L.flagstats(x))
     assert d == L.counters_to_dict(ref, x.size)
-    print("main path (a): flagstats_u16, cuda_report, pospopcnt_u16 (and its native "
-          "impl), flagstats on 64Mi full-range words = oracle")
+    wall, native = walls_beside_native(lambda: L.flagstats_u16(x),
+                                       lambda: L.flagstats_u16(x, impl="native"))
+    seen.update(K.LAUNCHES)
+    print(f"main path (a): flagstats_u16, cuda_report, pospopcnt_u16 (and its native "
+          f"impl), flagstats on 64Mi full-range words = oracle, each {n64} pieces and "
+          f"{n64} launches")
+    print(f"[{card}] one-shot wall, 64Mi words from a host column: flagstats_u16 "
+          f"{wall * 1e3:.3f} ms, impl='native' {native * 1e3:.3f} ms (least of 3 each, "
+          f"in turns)")
 
     # (c) out= accumulation over three blocks = one call
     acc = np.zeros(32, dtype=np.uint64)
     for block in np.array_split(x, 3):
-        L.flagstats_u16(block, out=acc)
-        launched(seen, "flagstat")
+        staged(seen, "flagstat", pieces_of(block.size), lambda: L.flagstats_u16(block, out=acc))
     assert (acc == c).all()
     print("main path (c): out= over three blocks = one call")
 
@@ -561,15 +613,14 @@ def drive_main_path() -> dict:
     cap = D.DEVICE_WORD_CAP
     D.DEVICE_WORD_CAP = 10_000_003
     try:
-        chunked = L.flagstats_u16(x)
-        launched(seen, "flagstat")
-        chunked_pos = L.pospopcnt_u16(x)
-        launched(seen, "pospopcnt")
+        per_chunk = sum(pieces_of(len(part)) for part in D._device_chunks(x))
+        chunked = staged(seen, "flagstat", per_chunk, lambda: L.flagstats_u16(x))
+        chunked_pos = staged(seen, "pospopcnt", per_chunk, lambda: L.pospopcnt_u16(x))
     finally:
         D.DEVICE_WORD_CAP = cap
     assert (chunked == ref).all() and (chunked_pos == p).all()
     print(f"main path (d): DEVICE_WORD_CAP=10,000,003 "
-          f"({-(-x.size // 10_000_000)} chunks) = oracle")
+          f"({-(-x.size // 10_000_000)} chunks, {per_chunk} pieces) = oracle")
     del xd
 
     # (b) the full synthetic NA12878 column
@@ -577,22 +628,23 @@ def drive_main_path() -> dict:
     arr, expected = synth_na12878(1)
     print(f"synth_na12878(1): {arr.size} words, shuffled, "
           f"made on the host in {time.perf_counter() - t0:.1f} s")
-    t0 = time.perf_counter()
-    c = L.flagstats_u16(arr)
-    wall = time.perf_counter() - t0
-    launched(seen, "flagstat")
+    n_na = pieces_of(arr.size)
+    c = staged(seen, "flagstat", n_na, lambda: L.flagstats_u16(arr))
     keep = [i for i in range(32) if i not in NA12878_SKIP]
     assert (c[keep] == expected[keep]).all(), (c, expected)
     report = L.counters_to_report(c)
     want = na12878_report_values(1)
     assert {k: getattr(report, k)[0] for k in want} == want, report
     assert all(getattr(report, k)[1] == 0 for k in want), report
-    r = L.flagstats_u16(arr, impl="cuda_report")
-    launched(seen, "flagstat_report")
+    r = staged(seen, "flagstat_report", n_na, lambda: L.flagstats_u16(arr, impl="cuda_report"))
     assert L.counters_to_report(r) == report
+    wall, native = walls_beside_native(lambda: L.flagstats_u16(arr),
+                                       lambda: L.flagstats_u16(arr, impl="native"))
+    seen.update(K.LAUNCHES)
     print(f"main path (b): NA12878 {arr.size} words, report = "
-          f"na12878_report_values(1) (flagstats_u16 host wall incl. H2D "
-          f"{wall:.3f} s)")
+          f"na12878_report_values(1), {n_na} pieces and launches a call")
+    print(f"[{card}] one-shot wall, NA12878 from a host column: flagstats_u16 "
+          f"{wall:.4f} s, impl='native' {native:.4f} s (least of 3 each, in turns)")
     print(report.text())
     return arr
 
@@ -826,19 +878,25 @@ def drive_parallel_path(na_words: np.ndarray, na_path: str, tmp: str, card: str)
     seen = dict(K.LAUNCHES)
     want = L.flagstats_u16(na_words, impl="native")
 
-    # (i) two shards on one card: the split and the merge
+    # (i) two shards on one card: the split, the staged pieces of both
+    # shards in turn through the card's ring, and the merge
     for impl, report, mode in (("cuda", False, "flagstat"), ("cuda_pre", False, "pre"),
                                ("cuda_words", False, "words"),
                                ("cuda", True, "flagstat_report")):
-        t0 = time.perf_counter()
-        c = L.flagstat_sharded(na_words, devices=["cuda:0", "cuda:0"], impl=impl,
-                               report=report)
-        wall = time.perf_counter() - t0
-        launched(seen, mode)
+        granule = GW if impl == "cuda_pre" else 8
+        pieces = sum(pieces_of(b - a, granule)
+                     for a, b in shard_bounds(na_words.size, 2, impl))
+        walls = []
+        for _ in range(3 if impl in ("cuda", "cuda_pre") and not report else 1):
+            t0 = time.perf_counter()
+            c = staged(seen, mode, pieces, lambda: L.flagstat_sharded(
+                na_words, devices=["cuda:0", "cuda:0"], impl=impl, report=report))
+            walls.append(time.perf_counter() - t0)
         check_na12878(c, want, f"sharded {impl} report={report}", report)
         print(f"[{card}] main path (h-i): flagstat_sharded(NA12878, 2 shards on cuda:0, "
-              f"impl={impl!r}, report={report}) = na12878_report_values(1); host wall "
-              f"incl. H2D {wall:.3f} s")
+              f"impl={impl!r}, report={report}) = na12878_report_values(1), {pieces} pieces "
+              f"and launches a call; host walls " + ", ".join(f"{w:.4f}" for w in walls)
+              + " s")
 
     # (ii) two processes over the LZ4 file, gloo, both ranks on cuda:0
     t0 = time.perf_counter()
@@ -871,13 +929,12 @@ def drive_parallel_path(na_words: np.ndarray, na_path: str, tmp: str, card: str)
                   rank=0, backend="nccl")
     try:
         for impl, mode in (("cuda", "flagstat"), ("cuda_words", "words")):
-            c = MH.flagstat_multihost(x, impl=impl)
-            launched(seen, mode)
+            c = staged(seen, mode, pieces_of(x.size), lambda: MH.flagstat_multihost(x, impl=impl))
             assert (c == ref).all(), (impl, c, ref)
     finally:
         torch.distributed.destroy_process_group()
     print("main path (h-iii): flagstat_multihost(64Mi words) in a one-rank NCCL group, "
-          "impl cuda and cuda_words = oracle")
+          f"impl cuda and cuda_words = oracle, {pieces_of(x.size)} staged pieces each")
     return workers
 
 
@@ -1006,8 +1063,10 @@ def drive_tools_path(na_words: np.ndarray, tmp: str) -> None:
         rc, lines = captured(flag + sizes, crossover_sweep.main)
         table = [ln.split("\t") for ln in lines if ln[:1].isdigit()]
         assert rc == 0 and [r[0] for r in table] == sizes, lines
-        assert all(float(v) > 0 for r in table for v in r[1:]), table   # no nan: every tier ran
-        assert sum(ln.startswith("# suggested") for ln in lines) == 4, lines
+        # no nan: every tier ran (pospopcnt_u16 has no cuda_pre or cuda_words)
+        timed = 7 if flag else 9
+        assert all(float(v) > 0 for r in table for v in r[1:timed]), table
+        assert sum(ln.startswith("# suggested") for ln in lines) == 6, lines
     print(f"main path (j): crossover_sweep and --pospopcnt at {sizes} words: every tier timed")
 
     rc, lines = captured([], pipeline_balance.main)
@@ -1053,6 +1112,116 @@ def drive_tools_path(na_words: np.ndarray, tmp: str) -> None:
           f"{os.path.getsize(files[0])} bytes of Chrome trace, names stream_sums_kernel")
 
 
+def _host_ms(fn, runs: int = 3) -> float:
+    """Least host wall of fn() with the card synchronised, in ms."""
+    best = float("inf")
+    for _ in range(runs):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        best = min(best, time.perf_counter() - t0)
+    return best * 1e3
+
+
+def shake_down_staging(na_words: np.ndarray, card: str) -> None:
+    """Phase 4s, only when named: the staging's shake-downs, each count
+    held against the oracle. (i) The rates apart: the host copy of 64Mi
+    words into pinned memory (torch's copy_ and a thread pool of
+    np.copyto), the pinned and the pageable copy to the card. (ii) The
+    one-shot wall of flagstats_u16 at 64Mi and on NA12878 at STAGE_WORDS
+    1Mi, 4Mi and 16Mi in turns (1, 4, 16, 16, 4, 1), and with the pool's
+    copy, each beside impl='native'; cuda_pre and the sharded cuda_pre
+    at 2, 4 and as many transpose threads as the process has cores. (iii)
+    cudaHostRegister of the caller's column, one pinned copy, one K1
+    launch and cudaHostUnregister, against the staged call."""
+    x, ref = words_64mi()
+    want_na = L.flagstats_u16(na_words, impl="native")
+    cols = (("64Mi", x, ref), ("NA12878", na_words, want_na))
+    cores = len(os.sched_getaffinity(0))
+    print(f"[{card}] (4s) host: os.cpu_count() {os.cpu_count()}, cores this process may "
+          f"use {cores}, torch intra-op threads {torch.get_num_threads()}")
+    pool = cf.ThreadPoolExecutor(cores)
+
+    def pool_copy(dst: torch.Tensor, src: torch.Tensor) -> None:
+        d, s = dst.numpy(), src.numpy()
+        step = -(-s.size // cores)
+        list(pool.map(lambda a: np.copyto(d[a:a + step], s[a:a + step]), range(0, s.size, step)))
+
+    src = torch.from_numpy(x.view(np.int16))
+    pinned = torch.empty(x.size, dtype=torch.int16, pin_memory=True)
+    on_card = torch.empty(x.size, dtype=torch.int16, device="cuda")
+    mb = x.nbytes / 1e6
+    rates = {"host copy_ into pinned": _host_ms(lambda: pinned.copy_(src)),
+             f"host pool of {cores} np.copyto into pinned": _host_ms(
+                 lambda: pool_copy(pinned, src)),
+             "pinned -> card": median_ms(lambda: on_card.copy_(pinned, non_blocking=True),
+                                         runs=3, reps=1),
+             "pageable -> card": _host_ms(lambda: on_card.copy_(src))}
+    print(f"[{card}] (4s-i) rates apart, {x.nbytes} bytes: " + "; ".join(
+        f"{k} {v:.3f} ms ({mb / v:.2f} GB/s)" for k, v in rates.items()))
+    del pinned, on_card
+
+    orig = ST.STAGE_WORDS, ST._copy_in, ST.TRANSPOSE_THREADS
+    turns = [("copy_", w) for w in (1 << 20, 1 << 22, 1 << 24, 1 << 24, 1 << 22, 1 << 20)]
+    try:
+        for copy_name, words in turns + [("pool", orig[0])]:
+            ST._copy_in = pool_copy if copy_name == "pool" else orig[1]
+            ST.STAGE_WORDS = words
+            for name, col, want in cols:
+                assert (L.flagstats_u16(col) == want).all(), (copy_name, words, name)
+                wall, native = walls_beside_native(
+                    lambda: L.flagstats_u16(col), lambda: L.flagstats_u16(col, impl="native"))
+                print(f"[{card}] (4s-ii) host copy {copy_name}, STAGE_WORDS {words}, {name}: "
+                      f"flagstats_u16 {wall * 1e3:.3f} ms ({col.nbytes / wall / 1e9:.2f} "
+                      f"GB/s), native {native * 1e3:.3f} ms, ratio {wall / native:.3f}; "
+                      f"ring made in {ST.ring('cuda:0').alloc_seconds * 1e3:.3f} ms")
+        ST.STAGE_WORDS, ST._copy_in = orig[:2]
+        for threads in (2, 4, cores, 4, 2):
+            ST.TRANSPOSE_THREADS = threads
+            for name, col, want in cols:
+                assert (L.flagstats_u16(col, impl="cuda_pre") == want).all(), (threads, name)
+                ms = _host_ms(lambda: L.flagstats_u16(col, impl="cuda_pre"))
+                print(f"[{card}] (4s-ii) cuda_pre, {threads} transpose threads, "
+                      f"{name}: {ms:.3f} ms")
+            ms = _host_ms(lambda: L.flagstat_sharded(na_words, devices=["cuda:0"] * 2,
+                                                     impl="cuda_pre"))
+            print(f"[{card}] (4s-ii) flagstat_sharded cuda_pre, 2 shards on cuda:0, "
+                  f"{threads} transpose threads, NA12878: {ms:.3f} ms")
+    finally:
+        ST.STAGE_WORDS, ST._copy_in, ST.TRANSPOSE_THREADS = orig
+    for name, col, want in cols:
+        assert (L.flagstats_u16(col, impl="cuda_words") == want).all(), name
+        ms = _host_ms(lambda: L.flagstats_u16(col, impl="cuda_words"))
+        print(f"[{card}] (4s-ii) cuda_words at the default STAGE_WORDS, {name}: {ms:.3f} ms")
+    pool.shutdown()
+
+    cudart = torch.cuda.cudart()
+    for name, col, want in cols:
+        t = {}
+        for run in range(3):
+            host = col.copy()     # a fresh column each run, as a caller's
+            t0 = time.perf_counter()
+            rc = cudart.cudaHostRegister(host.ctypes.data, host.nbytes, 0)
+            t1 = time.perf_counter()
+            assert rc == cudart.cudaError.success, (name, rc)
+            words = torch.from_numpy(host.view(np.int16))
+            assert words.is_pinned(), name
+            sums = K.stream_sums_cuda(words.to("cuda", non_blocking=True), "flagstat")
+            got = counters_from_sums(sums, "flagstat", host.size)
+            t2 = time.perf_counter()
+            assert cudart.cudaHostUnregister(host.ctypes.data) == cudart.cudaError.success
+            t3 = time.perf_counter()
+            assert (got == want).all(), name
+            staged_ms = _host_ms(lambda: L.flagstats_u16(host), runs=1)
+            for k, v in (("register", t1 - t0), ("copy+count", t2 - t1),
+                         ("unregister", t3 - t2), ("all", t3 - t0)):
+                t.setdefault(k, []).append(v * 1e3)
+            t.setdefault("staged", []).append(staged_ms)
+        print(f"[{card}] (4s-iii) cudaHostRegister of the caller's column, {name}, 3 runs "
+              "(ms): " + "; ".join(f"{k} " + ", ".join(f"{v:.3f}" for v in vs)
+                                   for k, vs in t.items()))
+
+
 #: words of one piece of the threaded oracle
 ORACLE_PIECE = 1 << 22
 
@@ -1092,7 +1261,7 @@ def count_container(label: str, path: str, kind: str, words: np.ndarray, ref: np
     native column route (for a CRAM also by the Python container walk,
     ``read_cram_flags_py``, the route before the container column
     reader), and flagstat_file on the card (impl=None: that route, then
-    K1 once) and with each of ``impls`` (name, launch counter or None) =
+    K1 once a staged piece) and with each of ``impls`` (name, launch counter or None) =
     ``ref`` in all 32 counters; prints the file's host walls and returns
     them."""
     from libflagstats_tpu_torch.io import read_flags_auto, sniff_format
@@ -1123,9 +1292,10 @@ def count_container(label: str, path: str, kind: str, words: np.ndarray, ref: np
     t0 = time.perf_counter()
     c = L.flagstat_file(path)
     t["flagstat_file"] = time.perf_counter() - t0
-    if route is not None:   # a container: its column, then K1 once
+    if route is not None:   # a container: its column, then K1 once a staged piece
         assert route.READ_ROUTE == "native", (label, route.READ_ROUTE)
-        assert K.LAUNCHES["flagstat"] == seen["flagstat"] + 1, (label, K.LAUNCHES, seen)
+        assert K.LAUNCHES["flagstat"] == seen["flagstat"] + pieces_of(words.size), \
+            (label, K.LAUNCHES, seen)
     launched(seen, "flagstat")
     assert (c == ref).all(), (label, c, ref)
     for impl, mode in impls:
@@ -1811,21 +1981,23 @@ def phase(name: str):
 
 
 def parse_phases(argv=None) -> list[str]:
-    """The phases to run, in PHASES order (default: all). Exits 2 on a
-    name that is not a phase."""
+    """The phases to run, in PHASES order, then the SHAKEDOWNS named
+    (default: every phase of PHASES). Exits 2 on a name that is neither."""
     ap = argparse.ArgumentParser(prog="chip_smoke.py", description=__doc__.split("\n")[0])
     ap.add_argument("--phases", default=",".join(PHASES),
-                    help="comma list of phases to run (default: all): " + ",".join(PHASES))
+                    help="comma list of phases to run (default: all): " + ",".join(PHASES)
+                    + "; and only when named: " + ",".join(SHAKEDOWNS))
     chosen = [p.strip() for p in ap.parse_args(argv).phases.split(",") if p.strip()]
-    unknown = [p for p in chosen if p not in PHASES]
+    unknown = [p for p in chosen if p not in PHASES + SHAKEDOWNS]
     if unknown or not chosen:
-        ap.error(f"unknown phases {unknown}; choose from {','.join(PHASES)}")
-    return [p for p in PHASES if p in chosen]
+        ap.error(f"unknown phases {unknown}; choose from {','.join(PHASES + SHAKEDOWNS)}")
+    return [p for p in PHASES + SHAKEDOWNS if p in chosen]
 
 
 def zero_launches() -> None:
-    for mode in K.LAUNCHES:
-        K.LAUNCHES[mode] = 0
+    for counts in (K.LAUNCHES, ST.STAGED):
+        for key in counts:
+            counts[key] = 0
 
 
 def main(argv=None) -> int:
@@ -1882,7 +2054,7 @@ def main(argv=None) -> int:
     if "4a" in run:
         zero_launches()
         with phase("4a-d, in-memory entry points"):
-            na["words"] = drive_main_path()
+            na["words"] = drive_main_path(card)
         launches = dict(K.LAUNCHES)
         print(f"main-path launches (phase 4 a-d): {launches}")
         assert all(launches[m] > 0 for m in K.MODES), launches
@@ -1973,6 +2145,11 @@ def main(argv=None) -> int:
             print(f"fault-path launches (phase 4n): this process {dict(K.LAUNCHES)}, "
                   f"its workers' {workers}")
 
+    if "4s" in run:
+        zero_launches()
+        with phase("4s, the staging's shake-downs"):
+            shake_down_staging(na12878(), card)
+
     timers = {"5": time_kernels, "5b": time_pre_kernel, "5c": time_words_kernel,
               "5d": time_probe_kernels, "5e": time_fold_and_setop, "5f": time_matmul_tier}
     results = {}
@@ -1984,7 +2161,7 @@ def main(argv=None) -> int:
     device = {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
               "count": torch.cuda.device_count()}
     print(f"[chip_smoke: {time.perf_counter() - t_start:.1f} s in all]", flush=True)
-    if len(run) < len(PHASES):
+    if not set(PHASES) <= set(run):
         # the kernel line needs every phase's launches and times
         print(card)  # as nvidia-smi --query-gpu=name,power.limit prints it
         print(json.dumps({"ok": True, "phases": run, "device": device}))

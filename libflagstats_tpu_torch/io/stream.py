@@ -27,7 +27,7 @@ plane-tile kernel) and ``torch`` = ``xla`` (plain torch).
 What changes in torch: JAX took pageable numpy with ``jnp.asarray`` and
 returned before the device finished. In torch a copy from pageable
 memory blocks the host, so runs are decoded into pinned host buffers
-(see ``_Ring``), copied with ``non_blocking=True`` on a side CUDA
+(see ``ops/staging._Ring``), copied with ``non_blocking=True`` on a side CUDA
 stream, and the compute stream waits on the copy's event. Without the
 native library (on the CPU only) the same loop decodes frame by frame
 with ``codec.decompress_block``. A bad header stops the stream where
@@ -55,7 +55,8 @@ from ..ops import dispatch as D
 from ..ops import kernels as K
 from ..ops import native_host
 from ..ops.bitslice import pretranspose_host_packed
-from ..ops.torch_ops import assemble_counters, stream_sums_from_numpy, stream_sums_torch
+from ..ops.staging import _Ring, piece_sums
+from ..ops.torch_ops import assemble_counters, stream_sums_from_numpy
 from . import codec as C
 from . import native_lib
 
@@ -136,72 +137,6 @@ def _flagstat_stream_native(path, codec, threads, checkpoint, timer):
     return counters
 
 
-class _Ring:
-    """Host staging slots of the device stream: pinned, each with a
-    device twin, when the count runs on a CUDA device; plain host memory,
-    counted in place, on the CPU.
-
-    The hazards it guards: a slot is refilled only after the
-    host->device copy that read it has completed (``acquire``), and a
-    copy overwrites a slot's device twin only after the kernel that read
-    it has completed (``ship`` waits on the event ``release`` records).
-    A slot whose run is still in decode is the caller's to guard: it
-    keeps fewer runs in decode than the ring has slots."""
-
-    def __init__(self, shape, dtype: torch.dtype, device: torch.device, depth: int):
-        self.cuda = device.type == "cuda"
-        self.device = device
-        view = np.uint16 if dtype == torch.int16 else np.uint32
-        self.host = [torch.empty(shape, dtype=dtype, pin_memory=self.cuda)
-                     for _ in range(depth)]
-        self.host_np = [h.numpy().view(view) for h in self.host]
-        self.dev = ([torch.empty(shape, dtype=dtype, device=device)
-                     for _ in range(depth)] if self.cuda else self.host)
-        self.copied = [None] * depth
-        self.consumed = [None] * depth
-        self.copy_stream = torch.cuda.Stream(device) if self.cuda else None
-        self.next = 0
-
-    def acquire(self) -> int:
-        """The next slot, once the copy that last read it has completed."""
-        slot = self.next
-        self.next = (slot + 1) % len(self.host)
-        if self.copied[slot] is not None:
-            self.copied[slot].synchronize()
-        return slot
-
-    def ship(self, slot: int, n: int) -> torch.Tensor:
-        """The first ``n`` entries of ``slot`` where the count runs. On a
-        CUDA device the copy runs on the side stream, and the current
-        (compute) stream waits for it."""
-        if not self.cuda:
-            return self.host[slot][:n]
-        dst = self.dev[slot][:n]
-        with torch.cuda.stream(self.copy_stream):
-            if self.consumed[slot] is not None:
-                self.copy_stream.wait_event(self.consumed[slot])
-            dst.copy_(self.host[slot][:n], non_blocking=True)
-            done = torch.cuda.Event()
-            done.record(self.copy_stream)
-        self.copied[slot] = done
-        torch.cuda.current_stream(self.device).wait_event(done)
-        return dst
-
-    def release(self, slot: int) -> None:
-        """Mark the work enqueued so far on the compute stream as the
-        last reader of ``slot``'s device twin."""
-        if self.cuda:
-            done = torch.cuda.Event()
-            done.record(torch.cuda.current_stream(self.device))
-            self.consumed[slot] = done
-
-    def close(self) -> None:
-        """Wait for every copy and count that may read the slots."""
-        if self.cuda:
-            self.copy_stream.synchronize()
-            torch.cuda.current_stream(self.device).synchronize()
-
-
 def _count_device(impl: str, device) -> torch.device:
     """Where a device impl counts: ``device`` if given; else the CUDA
     device, or for ``"torch"`` the CPU when there is none. Raises when
@@ -221,18 +156,11 @@ def _host_i32(t: torch.Tensor) -> np.ndarray:
     return t.cpu().numpy().astype(np.int32)
 
 
-def _chunk_sums(impl: str, chunk: torch.Tensor, report: bool):
-    """(C[k], F[k]) of one shipped chunk, enqueued on the chunk's device:
-    the count of the device stream. Module-level so that a measurement
-    can wrap it (tools/pipeline_balance.py synchronises after it to
-    forbid any overlap)."""
-    if impl == "torch":
-        return stream_sums_torch(chunk)
-    if impl == "cuda_pre":
-        sums = K.stream_sums_pre_cuda(chunk, report, packed=True)
-    else:
-        sums = K.stream_sums_cuda(chunk, "flagstat_report" if report else "flagstat")
-    return K._sums_to_streams(sums, report)
+#: (C[k], F[k]) of one shipped chunk, enqueued on the chunk's device: the
+#: count of the device stream. A module-level name, so that a measurement
+#: can wrap it (tools/pipeline_balance.py synchronises after it to forbid
+#: any overlap)
+_chunk_sums = piece_sums
 
 
 def _index_frames(buf, size: int) -> tuple[list[tuple[int, int, int]], str | None]:

@@ -10,9 +10,11 @@ libflagstats.h:2977-3070). The backend probe is
                                              every size (n = 0 launches nothing)
   no CUDA device, and no request for the CPU -> RuntimeError
 
-The host tiers (``"numpy"``, ``"native"``) are chosen by name. No
-crossover between them and the card has been measured on the H100, so
-the entry points do not switch to the host by size. The one size tier
+The host tiers (``"numpy"``, ``"native"``) are chosen by name: a call
+on the card never moves to the host. Nor does it move to another card
+tier by size: on an H100, with host columns staged, no card tier beat
+``"cuda"``'s wall from a swept size to the end of 2^10-2^28 words
+(``tools/crossover_sweep``; PERF.md). The one size tier
 is that of a call that asked for the CPU: below ``TORCH_MIN_CPU`` words
 it gets ``"numpy"`` (the counterpart of the JAX package's
 ``XLA_MIN_CPU``). Its default, 0, keeps the torch tier at every size;
@@ -26,6 +28,13 @@ algebra) and as the guard of the file readers.
 No shape bucketing: the TPU path padded to a ladder of shapes to bound
 XLA recompiles, and a CUDA kernel does not recompile per shape. The
 kernel masks its own ragged edge, so nothing is padded on the host.
+
+A kernel tier given a host column (a numpy array or a CPU tensor)
+counts it through ``ops/staging.py``: pieces of ``STAGE_WORDS`` words
+copied into pinned slots, shipped on a side stream and counted one
+launch a piece, the sums accumulating on the device (on the CPU the
+same loop runs the plain versions). Words already on a card are counted
+where they lie; ``"torch"`` and ``"torch_matmul"`` copy a column whole.
 
 ``impl="native"`` (the host AVX2 kernels of the native library),
 ``impl="cuda_pre"`` (host packed bit transpose, then the plane-tile
@@ -41,10 +50,10 @@ import torch
 from .. import flags as F
 from ..oracle import flagstat_numpy
 from . import native_host
-from .bitslice import pretranspose_host_packed
-from .kernels import flagstat_cuda, flagstat_cuda_pre, packed_rows_for, pospopcnt_u16_cuda
-from .torch_ops import as_words, flagstat_torch, pospopcnt_u16_matmul, pospopcnt_u16_torch
-from .words_kernels import flagstat_cuda_words
+from .kernels import pospopcnt_u16_cuda
+from .staging import piece_sums, staged_sums
+from .torch_ops import (as_words, assemble_counters, flagstat_torch, pospopcnt_u16_matmul,
+                        pospopcnt_u16_torch)
 
 #: implementation registry
 FLAGSTAT_IMPLS = {
@@ -183,19 +192,18 @@ def get_function(n_len: int, impl: str | None = None, device=None):
     def run(arr):
         words = as_words(_validate_u16(arr))
         target = _target_device(impl, device, words)
-        if impl == "cuda_pre":
-            # packed tiles: 25% fewer bytes cross the bus and are read
-            # than raw words (dispatch.py:283-300 of the JAX package)
-            host = _host_words(words)
-            planes = pretranspose_host_packed(host, packed_rows_for(False))
-            tiles = torch.from_numpy(planes.view(np.int32)).to(target)
-            return _host_counts(flagstat_cuda_pre(tiles, host.size, packed=True))
-        words = words.to(target)
         if impl == "torch":
-            return _host_counts(flagstat_torch(words))
-        if impl == "cuda_words":
-            return _host_counts(flagstat_cuda_words(words))
-        return _host_counts(flagstat_cuda(words, report=impl == "cuda_report"))
+            return _host_counts(flagstat_torch(words.to(target)))
+        kind, report = ("cuda", True) if impl == "cuda_report" else (impl, False)
+        if impl == "cuda_pre" or words.device.type == "cpu":
+            # a host column, in pinned pieces; cuda_pre transposes each
+            # into packed tiles on the host: 25% fewer bytes cross the bus
+            # and are read than raw words (dispatch.py:283-300 of the JAX
+            # package)
+            (total, fail), = staged_sums([(words.cpu(), target)], kind, report)
+        else:
+            total, fail = piece_sums(kind, words.to(target), report)
+        return _host_counts(assemble_counters(total, fail, words.numel()))
 
     return run
 
@@ -280,5 +288,9 @@ def pospopcnt_u16(array, impl: str | None = None, device=None) -> np.ndarray:
     acc = np.zeros(F.N_BITS, dtype=np.uint64)
     for chunk in _device_chunks(words):
         w = as_words(chunk)
-        acc += _host_counts(fn(w.to(_target_device(impl, device, w))))
+        target = _target_device(impl, device, w)
+        if impl == "cuda" and w.device.type == "cpu":
+            acc += _host_counts(staged_sums([(w, target)], "pospopcnt")[0])
+        else:
+            acc += _host_counts(fn(w.to(target)))
     return acc

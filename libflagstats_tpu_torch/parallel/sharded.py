@@ -13,6 +13,12 @@ device and added: that add is the psum. The derived pass total (counter
 No shard is padded: the kernels mask their own ragged edges, so
 ``shard_bounds`` takes the place of the JAX package's ``pad_for_mesh`` /
 ``shard_granule``.
+
+A host column's shards are counted through the staging rings
+(``ops/staging.py``), one ring per device: the shards' pieces are
+taken in turn across the devices, so copies to different cards
+overlap, and on repeated entries of one card the copy of one piece
+overlaps the count of the one before.
 """
 from __future__ import annotations
 
@@ -21,9 +27,8 @@ import torch
 
 from ..ops import dispatch as D
 from ..ops import kernels as K
-from ..ops.bitslice import pretranspose_host_packed
-from ..ops.torch_ops import as_words, assemble_counters, stream_sums_torch
-from ..ops.words_kernels import stream_sums_words_cuda
+from ..ops.staging import piece_sums, staged_sums
+from ..ops.torch_ops import as_words, assemble_counters
 
 #: the local impls, counterparts of the JAX package's pallas, pallas_pre,
 #: pallas_words and xla
@@ -73,21 +78,15 @@ def _check_impl(impl: str) -> None:
                          "not an impl name)")
 
 
-def _local_sums(words: torch.Tensor, dev: torch.device, impl: str,
-                report: bool) -> tuple[torch.Tensor, torch.Tensor]:
-    """(C[k], F[k]) of one shard counted on ``dev``, each (16,) int64."""
-    if impl == "cuda_pre":
-        host = words.cpu().numpy().view(np.uint16)
-        planes = pretranspose_host_packed(host, K.packed_rows_for(report))
-        sums = K.stream_sums_pre_cuda(torch.from_numpy(planes).to(dev), report, packed=True)
-        return K._sums_to_streams(sums, report)
-    words = words.to(dev)
-    if impl == "cuda":
-        sums = K.stream_sums_cuda(words, "flagstat_report" if report else "flagstat")
-        return K._sums_to_streams(sums, report)
-    if impl == "cuda_words":
-        return stream_sums_words_cuda(words)
-    return stream_sums_torch(words)
+def _local_sums(shards, impl: str, report: bool) -> list:
+    """(C[k], F[k]) of each (words, device) shard, each (16,) int64 on
+    its device. A host column's shards go through the staging rings
+    together, their pieces in turn (``cuda_pre`` always: it transposes
+    on the host); ``"torch"`` and words already on a card are counted
+    where they are sent."""
+    if impl == "cuda_pre" or (impl != "torch" and shards[0][0].device.type == "cpu"):
+        return staged_sums([(w.cpu(), dev) for w, dev in shards], impl, report)
+    return [piece_sums(impl, w.to(dev), report) for w, dev in shards]
 
 
 def sharded_sums(words: torch.Tensor, devices: list[torch.device], impl: str,
@@ -99,8 +98,9 @@ def sharded_sums(words: torch.Tensor, devices: list[torch.device], impl: str,
     total = torch.zeros(16, dtype=torch.int64, device=devices[0])
     fail = torch.zeros_like(total)
     for part in D._device_chunks(words, _granule(impl)):
-        for dev, (a, b) in zip(devices, shard_bounds(len(part), len(devices), impl)):
-            t, f = _local_sums(part[a:b], dev, impl, report)
+        bounds = shard_bounds(len(part), len(devices), impl)
+        shards = [(part[a:b], dev) for dev, (a, b) in zip(devices, bounds)]
+        for t, f in _local_sums(shards, impl, report):
             total += t.to(devices[0])
             fail += f.to(devices[0])
     return total, fail

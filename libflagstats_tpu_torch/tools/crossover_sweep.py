@@ -6,16 +6,21 @@ libalgebra.h:3519-3543; FLAGSTATS_u16, libflagstats.h:2999-3021). This
 sweep takes the same measurements for the port, per size:
 
   * host: ``flagstat_numpy`` and the native AVX2 count, wall time;
-  * device wall: one synchronised call on a host column, its copy to
-    the device included (what a single ``flagstats_u16`` call pays), for
-    the plain torch tier and for the bit-sliced kernel (K1);
+  * device wall: one synchronised public call on a host column
+    (``flagstats_u16(x, impl=...)``, ``pospopcnt_u16(x, impl=...)``),
+    what a one-shot caller pays, the staged copy to the device included,
+    for the plain torch tier and the card tiers ``cuda`` (K1),
+    ``cuda_pre`` (K2) and ``cuda_words`` (K6);
   * device kernel: launch-free time per call from the gated multi-K fit
-    (what a streaming caller pays per chunk).
+    (what a streaming caller pays per chunk), for torch and K1.
 
 It prints a TSV and the sizes from which each tier wins. K1 runs at
 every size: the kernel masks its own edges. ``--pospopcnt`` sweeps the
 positional-popcount tiers instead (host per-bit count, native, torch,
-K5).
+K5; ``pospopcnt_u16`` has no other card tier, so those columns are nan).
+A card tier may replace ``cuda`` only where its wall wins from some
+swept size to the end of the range: the sweep prints that size per
+tier, or None.
 
 ``--write``, with ``--device cpu``, records the one crossover the
 port's dispatch reads: ``TORCH_MIN_CPU`` (``POSPOPCNT_TORCH_MIN_CPU``
@@ -25,7 +30,9 @@ the disabled sentinel 2^62 when torch does not win at the largest. It
 goes into the port's calibration file (calibration.py) with its
 provenance: date, backend, the card as ``nvidia-smi`` names it, the
 median wall-minus-kernel gap and the tool. A call on the card reads no
-threshold, so ``--write`` without ``--device cpu`` is refused.
+threshold (on an H100 no card tier beat ``cuda``'s wall from a swept size
+to the end of 2^10-2^28 words; PERF.md), so ``--write`` without
+``--device cpu`` is refused.
 
 Run on the card:
   python -m libflagstats_tpu_torch.tools.crossover_sweep [--pospopcnt] [sizes ...]
@@ -45,13 +52,16 @@ import torch
 
 from ..ops import kernels as K
 from ..ops import native_host
-from ..ops.dispatch import pospopcnt_u16
+from ..ops.dispatch import flagstats_u16, pospopcnt_u16
 from ..ops.torch_ops import as_words, pospopcnt_u16_torch, stream_sums_torch
 from ..oracle import flagstat_numpy, generate_flags
 
 SIZES = tuple(1 << k for k in range(10, 27, 2))   # 1Ki..64Mi words, 4x steps
 HEADER = ("words\tnumpy_ms\tnative_ms\ttorch_wall_ms\ttorch_kern_ms\t"
-          "cuda_wall_ms\tcuda_kern_ms")
+          "cuda_wall_ms\tcuda_kern_ms\tcuda_pre_wall_ms\tcuda_words_wall_ms")
+#: the card tiers besides ``cuda`` whose walls the flagstat sweep takes
+#: (columns 7 and 8 of a row)
+CARD_TIERS = ("cuda_pre", "cuda_words")
 FIT_ITERS = 3
 FIT_ATTEMPTS = 3
 WALL_ITERS = 5
@@ -74,24 +84,41 @@ def _first_size(rows, pred):
     return next((r[0] for r in rows if pred(r)), None)
 
 
+def card_tier_min(rows, col: int) -> int | None:
+    """The smallest swept size from which the card tier in column
+    ``col`` beats ``cuda``'s wall (column 5) at every larger swept size;
+    None when it does not win at the largest (nan never wins)."""
+    found = None
+    for r in reversed(sorted(rows)):
+        if not r[col] < r[5]:
+            break
+        found = r[0]
+    return found
+
+
 def run(sizes=SIZES, pospopcnt: bool = False, device=None) -> dict:
     """The sweep over ``sizes`` on ``device`` (default: the current CUDA
     device; raises with no card unless device="cpu", which leaves the
-    kernel's columns nan). Prints the TSV and the suggestions; returns
+    card tiers' columns nan). Prints the TSV and the suggestions; returns
     {"rows", "suggested", "lines"}; a row is (words, numpy_s, native_s,
-    torch_wall_s, torch_kern_s, cuda_wall_s, cuda_kern_s)."""
+    torch_wall_s, torch_kern_s, cuda_wall_s, cuda_kern_s,
+    cuda_pre_wall_s, cuda_words_wall_s)."""
     from ..bench.harness import gated_kernel_time_fit, timing_device, wall_time_min
 
     dev = timing_device(device)
     if pospopcnt:
         host_fn = lambda a: pospopcnt_u16(a, impl="numpy")      # noqa: E731
         native_fn = native_host.pospopcnt_native
+        public, tiers = pospopcnt_u16, ("torch", "cuda")
         torch_body = pospopcnt_u16_torch
         cuda_body = lambda a: K.stream_sums_cuda(a, "pospopcnt")  # noqa: E731
     else:
         host_fn, native_fn = flagstat_numpy, native_host.flagstat_native
+        public, tiers = flagstats_u16, ("torch", "cuda") + CARD_TIERS
         torch_body = lambda a: torch.cat(stream_sums_torch(a))    # noqa: E731
         cuda_body = lambda a: K.stream_sums_cuda(a, "flagstat")   # noqa: E731
+    if dev.type != "cuda":
+        tiers = ("torch",)
     lines = []
 
     def say(line: str) -> None:
@@ -102,31 +129,32 @@ def run(sizes=SIZES, pospopcnt: bool = False, device=None) -> dict:
         f"{' mode=pospopcnt' if pospopcnt else ''}")
     say(HEADER)
     rows = []
+    nan = float("nan")
     for n in sizes:
         x = generate_flags(n, seed=n & 0xFFFF, full_range=True)
         t_numpy = _host_min(host_fn, x, 2)
-        t_native = _host_min(native_fn, x, 3) if native_host.available() else float("nan")
+        t_native = _host_min(native_fn, x, 3) if native_host.available() else nan
 
         x_host = as_words(x)
         x_dev = x_host.to(dev)
+        walls = {impl: wall_time_min(lambda h, impl=impl: public(h, impl=impl, device=dev),
+                                     x_host, iters=WALL_ITERS, warmup=2, device=dev)
+                 for impl in tiers}
 
-        def measure(body):
-            wall = wall_time_min(lambda h: body(h.to(dev)), x_host, iters=WALL_ITERS,
-                                 warmup=2, device=dev)
-            kern = gated_kernel_time_fit(body, x_dev, ks=_ks(n), iters=FIT_ITERS,
+        def kern(body):
+            return gated_kernel_time_fit(body, x_dev, ks=_ks(n), iters=FIT_ITERS,
                                          attempts=FIT_ATTEMPTS, device=dev).slope_s
-            return wall, kern
 
-        t_t_wall, t_t_kern = measure(torch_body)
-        t_c_wall = t_c_kern = float("nan")
-        if dev.type == "cuda":
-            t_c_wall, t_c_kern = measure(cuda_body)
-        rows.append((n, t_numpy, t_native, t_t_wall, t_t_kern, t_c_wall, t_c_kern))
-        say(f"{n}\t{t_numpy * 1e3:.3f}\t{t_native * 1e3:.3f}\t{t_t_wall * 1e3:.3f}\t"
-            f"{t_t_kern * 1e3:.4f}\t{t_c_wall * 1e3:.3f}\t{t_c_kern * 1e3:.4f}")
+        t_t_kern = kern(torch_body)
+        t_c_kern = kern(cuda_body) if dev.type == "cuda" else nan
+        row = (n, t_numpy, t_native, walls["torch"], t_t_kern, walls.get("cuda", nan),
+               t_c_kern) + tuple(walls.get(t, nan) for t in CARD_TIERS)
+        rows.append(row)
+        say(f"{n}\t" + "\t".join(f"{v * 1e3:.4f}" if i in (3, 5) else f"{v * 1e3:.3f}"
+                                  for i, v in enumerate(row[1:])))
 
-    def dev_wall(r):  # the better device wall (nan-safe: a nan never wins)
-        return min(v for v in (r[3], r[5], float("inf")) if v == v)
+    def dev_wall(r):  # the best device wall (nan-safe: a nan never wins)
+        return min(v for v in (r[3], r[5], r[7], r[8], float("inf")) if v == v)
 
     suggested = {
         "TORCH_MIN (single-call wall beats numpy)": _first_size(rows, lambda r: r[3] < r[1]),
@@ -137,6 +165,8 @@ def run(sizes=SIZES, pospopcnt: bool = False, device=None) -> dict:
         "NATIVE_DEVICE_MIN (device wall beats native host)":
             _first_size(rows, lambda r: r[2] == r[2] and dev_wall(r) < r[2]),
     }
+    suggested.update({f"{tier} over cuda (wall wins from this size to the end)":
+                      card_tier_min(rows, 7 + k) for k, tier in enumerate(CARD_TIERS)})
     for name, size in suggested.items():
         say(f"# suggested {'pospopcnt ' if pospopcnt else ''}{name}: {size}")
     # the order need not hold from the first crossover on

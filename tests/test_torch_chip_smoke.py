@@ -25,6 +25,7 @@ def test_every_phase_by_default():
     assert "4l" in chip_smoke.PHASES      # CRAM, the container legs and na12878_run
     assert "4m" in chip_smoke.PHASES      # the last tools, perf_native, the entry points
     assert chip_smoke.parse_phases([]) == list(chip_smoke.PHASES)
+    assert "4s" in chip_smoke.SHAKEDOWNS and "4s" not in chip_smoke.PHASES   # only when named
     assert chip_smoke.parse_phases(["--phases", ",".join(chip_smoke.PHASES)]) == \
         list(chip_smoke.PHASES)
 
@@ -33,7 +34,8 @@ def test_every_phase_by_default():
                                       (" 4i , 3 ", ["3", "4i"]), ("5c,5c", ["5c"]),
                                       ("4k", ["4k"]), ("5,4k,4j", ["4j", "4k", "5"]),
                                       ("4l", ["4l"]), ("4l,4k", ["4k", "4l"]),
-                                      ("4m", ["4m"]), ("5,4m,4l", ["4l", "4m", "5"])])
+                                      ("4m", ["4m"]), ("5,4m,4l", ["4l", "4m", "5"]),
+                                      ("4s", ["4s"]), ("4s,5,4a", ["4a", "5", "4s"])])
 def test_chosen_phases_run_in_order(arg, want):
     assert chip_smoke.parse_phases(["--phases", arg]) == want
 

@@ -82,7 +82,8 @@ def test_device_word_cap_rounds(mesh, monkeypatch, impl):
     want = jS.flagstat_sharded(x, mesh=mesh, impl="xla")
     calls = []
     real = S._local_sums
-    monkeypatch.setattr(S, "_local_sums", lambda *a: calls.append(a[0].numel()) or real(*a))
+    monkeypatch.setattr(S, "_local_sums",
+                        lambda *a: calls.extend(w.numel() for w, _ in a[0]) or real(*a))
     np.testing.assert_array_equal(S.flagstat_sharded(x, devices=["cpu"] * 2, impl=impl), want)
     assert len(calls) == 2 * len(list(D._device_chunks(x, 65536 if impl == "cuda_pre" else 8)))
     assert len(calls) >= 4 and sum(calls) == x.size

@@ -124,17 +124,18 @@ def test_crossover_sweep_on_the_cpu(quick, capsys, pospopcnt):
     assert lines[0] == "# device=cpu" + (" mode=pospopcnt" if pospopcnt else "")
     assert lines[1] == crossover_sweep.HEADER
     table = [ln.split("\t") for ln in lines[2:4]]
-    assert [r[0] for r in table] == ["1024", "5000"] and all(len(r) == 7 for r in table)
+    assert [r[0] for r in table] == ["1024", "5000"] and all(len(r) == 9 for r in table)
     for row, cols in zip(out["rows"], table):
         assert all(v > 0 for v in row[1:5])                 # numpy, native, torch wall and kernel
-        assert row[5] != row[5] and row[6] != row[6]        # no card: the kernel's columns are nan
-        assert cols[5] == cols[6] == "nan"
+        assert all(v != v for v in row[5:])                 # no card: the card tiers' columns are nan
+        assert cols[5:] == ["nan"] * 4
     tail = lines[4:]
-    assert len(tail) == 5 and all(ln.startswith("# suggested ") for ln in tail[:4])
-    assert all(("pospopcnt" in ln) == pospopcnt for ln in tail[:4])
-    assert len(out["suggested"]) == 4
-    assert all(v is None for k, v in out["suggested"].items() if k.startswith("CUDA_MIN"))
-    assert tail[4].startswith("# sizes where the native host count beats the device wall: [")
+    assert len(tail) == 7 and all(ln.startswith("# suggested ") for ln in tail[:6])
+    assert all(("pospopcnt" in ln) == pospopcnt for ln in tail[:6])
+    assert len(out["suggested"]) == 6
+    assert all(v is None for k, v in out["suggested"].items()
+               if k.startswith("CUDA_MIN") or " over cuda " in k)
+    assert tail[6].startswith("# sizes where the native host count beats the device wall: [")
 
 
 def test_first_size_rules():
@@ -146,6 +147,14 @@ def test_first_size_rules():
     assert first(rows, lambda r: r[5] == r[5] and r[5] < min(r[1], r[3])) == 2
     assert first(rows, lambda r: r[6] == r[6] and r[6] < r[4]) == 2
     assert first(rows, lambda r: r[1] > 5) is None
+    # a card tier (columns 7, 8) against cuda's wall (column 5): from its
+    # first size of an unbroken run of wins to the end, else None
+    nan = float("nan")
+    tiers = [(1, 0, 0, 0, 0, 1.0, 0, 0.5, nan), (2, 0, 0, 0, 0, 1.0, 0, 2.0, 0.5),
+             (3, 0, 0, 0, 0, 1.0, 0, 0.5, 0.5), (4, 0, 0, 0, 0, 1.0, 0, 0.5, 0.5)]
+    assert crossover_sweep.card_tier_min(tiers, 7) == 3
+    assert crossover_sweep.card_tier_min(tiers, 8) == 2
+    assert crossover_sweep.card_tier_min(tiers[:1], 8) is None
 
 
 # ---- pipeline_balance ----
