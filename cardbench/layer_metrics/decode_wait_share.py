@@ -1,0 +1,15 @@
+"""decode_wait_share (%): the program's ``lfs.stream.decode_wait`` spans
+(the calling thread's wait for the oldest run in decode) summed over its
+``lfs.flagstat_stream`` spans summed, in the traced window."""
+from cardbench.yardstick import span
+
+
+def read(view):
+    def total(name):
+        return sum(span(e)[1] - span(e)[0] for e in view.events if e.get("name") == name
+                   and view.lo <= span(e)[0] and span(e)[1] <= view.hi)
+
+    calls, waits = total("lfs.flagstat_stream"), total("lfs.stream.decode_wait")
+    if calls <= 0 or waits <= 0:
+        return None
+    return 100.0 * waits / calls

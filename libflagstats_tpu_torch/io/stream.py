@@ -41,7 +41,6 @@ import ctypes
 import mmap
 import os
 import struct
-import time
 import zipfile
 from collections import deque
 
@@ -49,6 +48,7 @@ import numpy as np
 import torch
 
 from .. import flags as F
+from ..bench import profiling
 from ..bench.profiling import SectionTimer
 from ..config import CONFIG
 from ..ops import dispatch as D
@@ -343,20 +343,28 @@ def _count_frames(src: _FramedFile, sums: _Sums, stop: int, impl: str, chunk_wor
     dpool = cf.ThreadPoolExecutor(calls, thread_name_prefix="decode")
     decoding: deque = deque()
     pending: deque = deque()
+    # the workers' spans record under the call's, when it records
+    call = profiling.current()
 
     def decode(a, b, out):
-        t0 = time.perf_counter()
-        words = src.decode(a, b, out, n_threads // calls)
-        return words, time.perf_counter() - t0
+        took = SectionTimer()
+        with profiling.span("lfs.stream.decode", took, under=call, first_frame=a,
+                            frames=b - a) as s:
+            words = src.decode(a, b, out, n_threads // calls)
+            s.note(words=words)
+        return words, took.totals["decode"]
+
+    def transpose(buf, slot, g):
+        with profiling.span("lfs.stage.transpose", under=call, bytes=buf.nbytes):
+            pretranspose_host_packed(buf, rows, 2, ring.host_np[slot][:g])
 
     def dispatch(slot, size, words):
         if cap is not None and sums.epoch_words + words > cap:
             sums.roll()
-        # h2d times the enqueue of the copy, not the copy: slot_wait and
+        # ship times the enqueue of the copy, not the copy: slot_wait and
         # final_sync show where the host waits for the device
-        with timer.section("h2d"):
-            chunk = ring.ship(slot, size)
-        with timer.section("dispatch"):
+        chunk = ring.ship(slot, size, timer)
+        with profiling.span("lfs.stream.dispatch", timer):
             c, f = _chunk_sums(impl, chunk, report)
             sums.total += c
             sums.fail += f
@@ -368,7 +376,7 @@ def _count_frames(src: _FramedFile, sums: _Sums, stop: int, impl: str, chunk_wor
         transpose stage."""
         while len(pending) > keep:
             fut, slot, size, words = pending.popleft()
-            with timer.section("transpose_wait"):
+            with profiling.span("lfs.stream.transpose_wait", timer):
                 fut.result()
             dispatch(slot, size, words)
 
@@ -376,17 +384,16 @@ def _count_frames(src: _FramedFile, sums: _Sums, stop: int, impl: str, chunk_wor
         """Take the oldest run in decode on to the count (a failed decode
         raises here, after every run before it is counted)."""
         fut, b, slot, buf = decoding.popleft()
-        words, seconds = fut.result()
+        with profiling.span("lfs.stream.decode_wait", timer):
+            words, seconds = fut.result()
         timer.add("decode", seconds)
         if pre:
             g = -(-words // K.GROUP_WORDS)
             buf[words:g * K.GROUP_WORDS] = 0   # the tail pads with zero words
             if g:
-                with timer.section("slot_wait"):
-                    slot = ring.acquire()
-                pending.append((xpool.submit(pretranspose_host_packed,
-                                             buf[:g * K.GROUP_WORDS], rows, 2,
-                                             ring.host_np[slot][:g]), slot, g, words))
+                slot = ring.acquire(timer)
+                pending.append((xpool.submit(transpose, buf[:g * K.GROUP_WORDS], slot, g),
+                                slot, g, words))
                 drain(keep=PRE_WINDOW)
         elif words:
             dispatch(slot, words, words)
@@ -394,7 +401,7 @@ def _count_frames(src: _FramedFile, sums: _Sums, stop: int, impl: str, chunk_wor
         sums.block = b
         if every and b % every == 0:
             drain()
-            with timer.section("checkpoint"):
+            with profiling.span("lfs.stream.checkpoint", timer):
                 checkpoint.maybe_save(b, _host_i32(sums.total), _host_i32(sums.fail),
                                       sums.n_words, grand=sums.grand,
                                       epoch_words=sums.epoch_words)
@@ -404,8 +411,7 @@ def _count_frames(src: _FramedFile, sums: _Sums, stop: int, impl: str, chunk_wor
             if pre:
                 slot, buf = None, stage[k % len(stage)]
             else:
-                with timer.section("slot_wait"):
-                    slot = ring.acquire()
+                slot = ring.acquire(timer)
                 buf = ring.host_np[slot]
             decoding.append((dpool.submit(decode, a, b, buf), b, slot, buf))
             if len(decoding) == calls:
@@ -468,9 +474,12 @@ def flagstat_stream(path, codec: str | int = "lz4", impl: str | None = None,
     from and update at its block interval. ``timer``: a SectionTimer
     that accumulates the pipeline's stages (decode: the walls of the
     decode calls, summed, though up to DECODE_CALLS of them overlap;
-    slot_wait, transpose_wait, h2d, dispatch, checkpoint, final_sync;
-    the native impl's decode_count, or with a checkpoint decode_wait and
-    count).
+    decode_wait: the calling thread's wait for the oldest decode;
+    slot_wait, transpose_wait, ship: the enqueue of a slot's copy, not
+    the copy; dispatch, checkpoint, final_sync; the native impl's
+    decode_count, or with a checkpoint decode_wait and count). The same
+    sites are the spans ``lfs.stream.*`` and ``lfs.stage.*`` under the
+    call's ``lfs.flagstat_stream`` (``bench/profiling.py``).
 
     A bad frame header, a truncated payload or trailing bytes raise the
     ``ValueError`` of ``codec.iter_framed`` after the frames before them
@@ -481,23 +490,25 @@ def flagstat_stream(path, codec: str | int = "lz4", impl: str | None = None,
     int32-range values the JAX package can resume (and vice versa)."""
     if impl is None:
         impl = D.device_impl(device)
-    if impl == "native":
-        return _flagstat_stream_native(path, codec, threads, checkpoint, timer)
-    chunk_words, dev = _device_args(impl, chunk_words, device)
-    if timer is None:
-        timer = SectionTimer()
-    src = _FramedFile(path, codec)
-    try:
-        sums = _Sums(dev, checkpoint)
-        _count_frames(src, sums, len(src.frames), impl, chunk_words,
-                      report and impl != "torch", threads or CONFIG.decode_threads or 8,
-                      timer, checkpoint, D.DEVICE_WORD_CAP)
-        if src.error is not None:
-            raise ValueError(src.error)
-        with timer.section("final_sync"):
-            return sums.counters()
-    finally:
-        src.close()
+    with profiling.span("lfs.flagstat_stream", impl=impl) as call:
+        if impl == "native":
+            return _flagstat_stream_native(path, codec, threads, checkpoint, timer)
+        chunk_words, dev = _device_args(impl, chunk_words, device)
+        if timer is None:
+            timer = SectionTimer()
+        src = _FramedFile(path, codec)
+        try:
+            call.note(frames=len(src.frames))
+            sums = _Sums(dev, checkpoint)
+            _count_frames(src, sums, len(src.frames), impl, chunk_words,
+                          report and impl != "torch", threads or CONFIG.decode_threads or 8,
+                          timer, checkpoint, D.DEVICE_WORD_CAP)
+            if src.error is not None:
+                raise ValueError(src.error)
+            with profiling.span("lfs.readback", timer, "final_sync"):
+                return sums.counters()
+        finally:
+            src.close()
 
 
 def framed_range_sums(path, codec: str | int, start: int, stop: int, impl: str,

@@ -48,6 +48,7 @@ import numpy as np
 import torch
 
 from .. import flags as F
+from ..bench import profiling
 from ..oracle import flagstat_numpy
 from . import native_host
 from .kernels import pospopcnt_u16_cuda
@@ -167,7 +168,10 @@ def _target_device(impl: str, device, words: torch.Tensor) -> torch.device:
 
 
 def _host_counts(t: torch.Tensor) -> np.ndarray:
-    return t.cpu().numpy().astype(np.uint64)
+    """The counters on the host (span ``lfs.readback``): waits for the
+    device."""
+    with profiling.span("lfs.readback"):
+        return t.cpu().numpy().astype(np.uint64)
 
 
 def _host_words(words) -> np.ndarray:
@@ -257,16 +261,21 @@ def flagstats_u16(array, out=None, impl: str | None = None, device=None) -> np.n
     view). Accumulates into ``out`` when given (reference: FLAGSTATS_u16,
     libflagstats.h:3025). ``device`` picks where a device tier computes.
     Streams past DEVICE_WORD_CAP are split into accumulating sub-calls,
-    each with its own true length for the derived pass total."""
-    words = _validate_u16(array)
-    if impl is None:
-        impl = auto_impl(len(words), _where(words, device))
-    fn = get_function(len(words), impl, device)
-    acc = np.zeros(F.N_COUNTERS, dtype=np.uint64) if out is None else out
-    host_tier = impl in ("numpy", "native")
-    for chunk in ([words] if host_tier else _device_chunks(words)):
-        acc += fn(chunk)
-    return acc
+    each with its own true length for the derived pass total. Span
+    ``lfs.flagstats_u16``, args words, impl and held (``card`` for words
+    on a CUDA device, else ``host``)."""
+    with profiling.span("lfs.flagstats_u16") as call:
+        words = _validate_u16(array)
+        if impl is None:
+            impl = auto_impl(len(words), _where(words, device))
+        call.note(words=len(words), impl=impl, held="card" if isinstance(words, torch.Tensor)
+                  and words.device.type == "cuda" else "host")
+        fn = get_function(len(words), impl, device)
+        acc = np.zeros(F.N_COUNTERS, dtype=np.uint64) if out is None else out
+        host_tier = impl in ("numpy", "native")
+        for chunk in ([words] if host_tier else _device_chunks(words)):
+            acc += fn(chunk)
+        return acc
 
 
 def pospopcnt_u16(array, impl: str | None = None, device=None) -> np.ndarray:

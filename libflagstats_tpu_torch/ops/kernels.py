@@ -28,6 +28,7 @@ import ctypes
 import torch
 
 from .. import flags as F
+from ..bench import profiling
 from . import bitslice as B
 from .torch_ops import as_words, assemble_counters
 
@@ -216,6 +217,19 @@ def _flush_state(state) -> torch.Tensor:
 
 # ---- the kernel wrapper ----
 
+def launch_span(mode: str, x):
+    """The span ``lfs.launch`` of one wrapper call (K1, K2, K6): its
+    checks, the output's ``torch.zeros`` and the ctypes launch, or the
+    plain version on a CPU tensor; args ``mode`` (a ``LAUNCHES`` key) and
+    ``words`` (K2: the words of its plane tiles). None for an empty
+    input, which launches nothing."""
+    n = x.numel() if isinstance(x, torch.Tensor) else 1
+    if not n:
+        return profiling.NOOP
+    return profiling.span("lfs.launch", mode=mode,
+                          words=x.shape[0] * GROUP_WORDS if x.ndim == 4 else n)
+
+
 def check_cuda_words(x) -> bool:
     """True when ``x`` is a tensor on the CPU (the wrappers then take
     their plain versions); False for a word stream a raw-word kernel
@@ -255,24 +269,25 @@ def stream_sums_cuda(x: torch.Tensor, mode: str = "flagstat",
     ``blocks`` is the most blocks the grid gets, the one geometry knob of
     a kernel whose blocks stride over the input (tools/kernel_sweep.py
     sweeps it); None gives one full wave (``wave_blocks``)."""
-    _check_mode(mode)
-    blocks = _check_blocks(blocks)
-    if check_cuda_words(x):
-        return stream_sums_plain(x, mode)
-    out = torch.zeros(N_STREAMS[mode], dtype=torch.int64, device=x.device)
-    if x.numel() == 0:
-        return out
-    from . import cuda_build
+    with launch_span(mode, x):
+        _check_mode(mode)
+        blocks = _check_blocks(blocks)
+        if check_cuda_words(x):
+            return stream_sums_plain(x, mode)
+        out = torch.zeros(N_STREAMS[mode], dtype=torch.int64, device=x.device)
+        if x.numel() == 0:
+            return out
+        from . import cuda_build
 
-    lib = cuda_build.load()
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = lib.lfs_stream_sums(_MODE_ID[mode], x.data_ptr(), x.numel(),
-                                  out.data_ptr(), blocks, stream)
-    if err:
-        raise RuntimeError(f"stream_sums kernel ({mode}) failed: cudaError {err}")
-    LAUNCHES[mode] += 1
-    return out
+        lib = cuda_build.load()
+        with torch.cuda.device(x.device):
+            stream = torch.cuda.current_stream().cuda_stream
+            err = lib.lfs_stream_sums(_MODE_ID[mode], x.data_ptr(), x.numel(),
+                                      out.data_ptr(), blocks, stream)
+        if err:
+            raise RuntimeError(f"stream_sums kernel ({mode}) failed: cudaError {err}")
+        LAUNCHES[mode] += 1
+        return out
 
 
 def wave_blocks(mode: str = "flagstat", device=None) -> int:
@@ -360,33 +375,34 @@ def stream_sums_pre_cuda(planes: torch.Tensor, report: bool = False,
     plain version. No group count is padded: a CUDA block takes one
     group per turn of its loop, and zero tiles count nothing. ``blocks``
     as for stream_sums_cuda (one wave: ``pre_wave_groups``)."""
-    blocks = _check_blocks(blocks)
-    planes32, rows = _check_planes(planes, report, packed)
-    if planes.device.type == "cpu":
-        return stream_sums_pre_plain(planes, report, packed)
-    if planes.device.type != "cuda":
-        raise ValueError(f"the kernel runs on CUDA tensors, got {planes.device}")
-    if not planes.is_contiguous():
-        raise ValueError("the kernel reads contiguous plane tiles")
-    if planes.data_ptr() % 16:
-        raise ValueError("the kernel needs 16-byte aligned plane tiles")
-    mode = "flagstat_report" if report else "flagstat"
-    out = torch.zeros(N_STREAMS[mode], dtype=torch.int64, device=planes.device)
-    groups = planes.shape[0]
-    if groups == 0:
-        return out
-    from . import cuda_build
+    with launch_span("pre_report" if report else "pre", planes):
+        blocks = _check_blocks(blocks)
+        planes32, rows = _check_planes(planes, report, packed)
+        if planes.device.type == "cpu":
+            return stream_sums_pre_plain(planes, report, packed)
+        if planes.device.type != "cuda":
+            raise ValueError(f"the kernel runs on CUDA tensors, got {planes.device}")
+        if not planes.is_contiguous():
+            raise ValueError("the kernel reads contiguous plane tiles")
+        if planes.data_ptr() % 16:
+            raise ValueError("the kernel needs 16-byte aligned plane tiles")
+        mode = "flagstat_report" if report else "flagstat"
+        out = torch.zeros(N_STREAMS[mode], dtype=torch.int64, device=planes.device)
+        groups = planes.shape[0]
+        if groups == 0:
+            return out
+        from . import cuda_build
 
-    lib = cuda_build.load()
-    with torch.cuda.device(planes.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = lib.lfs_stream_sums_pre(_MODE_ID[mode], len(rows), planes32.data_ptr(),
-                                      groups, out.data_ptr(), blocks, stream)
-    if err:
-        raise RuntimeError(f"stream_sums_pre kernel ({mode}, {len(rows)} rows) "
-                           f"failed: cudaError {err}")
-    LAUNCHES["pre_report" if report else "pre"] += 1
-    return out
+        lib = cuda_build.load()
+        with torch.cuda.device(planes.device):
+            stream = torch.cuda.current_stream().cuda_stream
+            err = lib.lfs_stream_sums_pre(_MODE_ID[mode], len(rows), planes32.data_ptr(),
+                                          groups, out.data_ptr(), blocks, stream)
+        if err:
+            raise RuntimeError(f"stream_sums_pre kernel ({mode}, {len(rows)} rows) "
+                               f"failed: cudaError {err}")
+        LAUNCHES["pre_report" if report else "pre"] += 1
+        return out
 
 
 def pre_wave_groups(report: bool = False, packed: bool = False, device=None) -> int:

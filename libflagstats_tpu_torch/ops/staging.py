@@ -27,6 +27,7 @@ import time
 import numpy as np
 import torch
 
+from ..bench import profiling
 from . import kernels as K
 from .bitslice import pretranspose_host_packed
 from .torch_ops import stream_sums_torch
@@ -77,30 +78,35 @@ class _Ring:
         self.copy_stream = torch.cuda.Stream(device) if self.cuda else None
         self.next = 0
 
-    def acquire(self) -> int:
-        """The next slot, once the copy that last read it has completed."""
+    def acquire(self, timer=None) -> int:
+        """The next slot, once the copy that last read it has completed
+        (span ``lfs.stage.acquire``; ``timer``'s section ``slot_wait``)."""
         slot = self.next
-        self.next = (slot + 1) % len(self.host)
-        if self.copied[slot] is not None:
-            self.copied[slot].synchronize()
+        with profiling.span("lfs.stage.acquire", timer, "slot_wait", slot=slot):
+            self.next = (slot + 1) % len(self.host)
+            if self.copied[slot] is not None:
+                self.copied[slot].synchronize()
         return slot
 
-    def ship(self, slot: int, n: int) -> torch.Tensor:
+    def ship(self, slot: int, n: int, timer=None) -> torch.Tensor:
         """The first ``n`` entries of ``slot`` where the count runs. On a
         CUDA device the copy runs on the side stream, and the current
-        (compute) stream waits for it."""
-        if not self.cuda:
-            return self.host[slot][:n]
-        dst = self.dev[slot][:n]
-        with torch.cuda.stream(self.copy_stream):
-            if self.consumed[slot] is not None:
-                self.copy_stream.wait_event(self.consumed[slot])
-            dst.copy_(self.host[slot][:n], non_blocking=True)
-            done = torch.cuda.Event()
-            done.record(self.copy_stream)
-        self.copied[slot] = done
-        torch.cuda.current_stream(self.device).wait_event(done)
-        return dst
+        (compute) stream waits for it. The span ``lfs.stage.ship``
+        (``timer``'s section ``ship``) times the enqueue, not the copy."""
+        src = self.host[slot][:n]
+        with profiling.span("lfs.stage.ship", timer, bytes=src.nbytes):
+            if not self.cuda:
+                return src
+            dst = self.dev[slot][:n]
+            with torch.cuda.stream(self.copy_stream):
+                if self.consumed[slot] is not None:
+                    self.copy_stream.wait_event(self.consumed[slot])
+                dst.copy_(src, non_blocking=True)
+                done = torch.cuda.Event()
+                done.record(self.copy_stream)
+            self.copied[slot] = done
+            torch.cuda.current_stream(self.device).wait_event(done)
+            return dst
 
     def release(self, slot: int) -> None:
         """Mark the work enqueued so far on the compute stream as the
@@ -139,7 +145,8 @@ def ring(device) -> _Ring:
 def _copy_in(dst: torch.Tensor, src: torch.Tensor) -> None:
     """Copy a piece of the caller's column into a slot, on the host's
     intra-op threads."""
-    dst.copy_(src)
+    with profiling.span("lfs.stage.copy_in", bytes=src.nbytes):
+        dst.copy_(src)
 
 
 def _pieces(columns, step: int):
@@ -215,8 +222,10 @@ def staged_sums(columns, impl: str, report: bool = False) -> list:
             if rows:
                 groups = -(-(b - a) // K.GROUP_WORDS)
                 tiles = r.host_np[slot].view(np.uint32)[:groups * len(rows) * K.SUB * K.LANE]
-                pretranspose_host_packed(piece.numpy().view(np.uint16), rows, TRANSPOSE_THREADS,
-                                         out=tiles.reshape(groups, len(rows), K.SUB, K.LANE))
+                with profiling.span("lfs.stage.transpose", bytes=piece.nbytes):
+                    pretranspose_host_packed(piece.numpy().view(np.uint16), rows,
+                                             TRANSPOSE_THREADS,
+                                             out=tiles.reshape(groups, len(rows), K.SUB, K.LANE))
                 shipped = r.ship(slot, 2 * tiles.size).view(torch.int32).view(
                     groups, len(rows), K.SUB, K.LANE)
             else:

@@ -22,6 +22,7 @@ import numpy as np
 import torch
 
 from .. import flags as F
+from ..bench import profiling
 
 _ONE16 = 0x00010001
 
@@ -123,15 +124,17 @@ def assemble_counters(total: torch.Tensor, fail: torch.Tensor, n) -> torch.Tenso
 
     pass[k] = C[k] - F[k]; fail[9] = C[9] (= number of QC-fail reads);
     pass[9] = n - C[9] (derived pass total, reference: libflagstats.h:429).
-    ``n`` is the true word count: padding never reaches counter 9."""
-    total = torch.as_tensor(total).to(torch.int64)
-    fail = torch.as_tensor(fail, device=total.device).to(torch.int64)
-    n_fail = total[F.FQCFAIL_OFF]
-    passed = total - fail
-    passed[F.FQCFAIL_OFF] = int(n) - n_fail
-    failed = fail.clone()
-    failed[F.FQCFAIL_OFF] = n_fail
-    return torch.cat([passed, failed])
+    ``n`` is the true word count: padding never reaches counter 9.
+    Span ``lfs.assemble``."""
+    with profiling.span("lfs.assemble"):
+        total = torch.as_tensor(total).to(torch.int64)
+        fail = torch.as_tensor(fail, device=total.device).to(torch.int64)
+        n_fail = total[F.FQCFAIL_OFF]
+        passed = total - fail
+        passed[F.FQCFAIL_OFF] = int(n) - n_fail
+        failed = fail.clone()
+        failed[F.FQCFAIL_OFF] = n_fail
+        return torch.cat([passed, failed])
 
 
 def flagstat_torch(x, n=None) -> torch.Tensor:

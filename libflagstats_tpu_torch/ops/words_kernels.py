@@ -36,7 +36,7 @@ import ctypes
 import torch
 
 from .. import flags as F
-from .kernels import LAUNCHES, _check_blocks, _csa, check_cuda_words
+from .kernels import LAUNCHES, _check_blocks, _csa, check_cuda_words, launch_span
 from .torch_ops import _ONE16, _transform_words_packed, as_words, assemble_counters
 
 BITS = 15          # transformed bit 15 is always 0
@@ -177,22 +177,23 @@ def stream_sums_words_cuda(x: torch.Tensor, blocks: int | None = None
     for ``kernels.stream_sums_cuda`` (one wave: ``words_wave_blocks``); a
     grid far below one wave makes one thread run many more bodies than
     FLUSH_BODIES."""
-    blocks = _check_blocks(blocks)
-    if check_cuda_words(x):
-        return stream_sums_words_plain(x)
-    out = torch.zeros(2 * BITS, dtype=torch.int64, device=x.device)
-    if x.numel():
-        from . import cuda_build
+    with launch_span("words", x):
+        blocks = _check_blocks(blocks)
+        if check_cuda_words(x):
+            return stream_sums_words_plain(x)
+        out = torch.zeros(2 * BITS, dtype=torch.int64, device=x.device)
+        if x.numel():
+            from . import cuda_build
 
-        lib = cuda_build.load()
-        with torch.cuda.device(x.device):
-            stream = torch.cuda.current_stream().cuda_stream
-            err = lib.lfs_stream_sums_words(x.data_ptr(), x.numel(), out.data_ptr(),
-                                            blocks, stream)
-        if err:
-            raise RuntimeError(f"stream_sums_words kernel failed: cudaError {err}")
-        LAUNCHES["words"] += 1
-    return _pass_fail_to_streams(out)
+            lib = cuda_build.load()
+            with torch.cuda.device(x.device):
+                stream = torch.cuda.current_stream().cuda_stream
+                err = lib.lfs_stream_sums_words(x.data_ptr(), x.numel(), out.data_ptr(),
+                                                blocks, stream)
+            if err:
+                raise RuntimeError(f"stream_sums_words kernel failed: cudaError {err}")
+            LAUNCHES["words"] += 1
+        return _pass_fail_to_streams(out)
 
 
 def words_wave_blocks(device=None) -> int:

@@ -91,7 +91,8 @@ def test_runs_equal_jax_and_oracle(framed, monkeypatch, impl, codec, geometry):
     runs = GEOMETRIES[geometry][2]
     assert timer.counts.get("dispatch", 0) == runs
     assert timer.counts.get("decode", 0) == runs
-    assert "chunk_copy" not in timer.totals and "decode_wait" not in timer.totals
+    assert "chunk_copy" not in timer.totals
+    assert timer.counts.get("decode_wait", 0) == runs   # the calling thread waits once a run
     if impl == "cuda_pre":
         assert timer.counts.get("transpose_wait", 0) == runs
 
