@@ -178,9 +178,10 @@ NA12878_SKIP = [F.FREVERSE_OFF, F.FMREVERSE_OFF, 16 + F.FREVERSE_OFF, 16 + F.FMR
 #: data-parallel, 4i measurement, 4j tools, 4k container files, 4l CRAM
 #: files, the container legs and na12878_run, 4m the last tools,
 #: perf_native and the entry points, 4n a bad range of the framed-file
-#: leg in two ranks, 5-5e kernel times, 5f the torch_matmul pospopcnt tier
+#: leg in two ranks, 4o the epilogue kernel, 5-5e kernel times, 5f the
+#: torch_matmul pospopcnt tier
 PHASES = ("3", "3b", "3c", "3d", "3e", "4a", "4e", "4g", "4h", "4i", "4j", "4k", "4l", "4m",
-          "4n", "5", "5b", "5c", "5d", "5e", "5f")
+          "4n", "4o", "5", "5b", "5c", "5d", "5e", "5f")
 #: phases that run only when named: 4s, the staging's shake-downs (the
 #: piece size, the host copy, cudaHostRegister of the caller's column)
 SHAKEDOWNS = ("4s",)
@@ -198,6 +199,11 @@ CONTAINER_LEVEL = 1
 #: phase 5f's chunks of the torch_matmul tier, timed at 64Mi beside
 #: dispatch.MATMUL_CHUNK's
 MATMUL_CHUNKS = (1 << 20, 1 << 24)
+#: phase 4o's DEVICE_WORD_CAP: the NA12878 column on the card in three
+#: chunks, each one count launch and one epilogue launch
+EPILOGUE_CAP = 300_000_007
+#: phase 4o's timed one-shot calls on the resident column, for each ending
+WALL_CALLS = 300
 WORDS_DISTRIBUTIONS = (("full-range", lambda n: generate_flags(n, seed=11, full_range=True)),
                        ("flags<4096", lambda n: generate_flags(n, seed=11, full_range=False)),
                        ("one value", lambda n: np.full(n, 99, np.uint16)))
@@ -1713,16 +1719,17 @@ def time_words_kernel(na_words: np.ndarray, card: str) -> dict:
     (the table lookup's bank conflicts differ) and on the NA12878 column;
     and at one turn per block of a full wave, where the table's prologue
     is the largest share. "alone" is the launch without the wrapper's
-    zero-fill and its two small operations after it."""
+    checks, its zeroing of the sums and the epilogue kernel after it."""
     times = {}
     lib = cuda_build.load()
     out = torch.zeros(2 * W.BITS, dtype=torch.int64, device="cuda")
 
     def alone(x):
         stream = torch.cuda.current_stream().cuda_stream
-        assert lib.lfs_stream_sums_words(x.data_ptr(), x.numel(), out.data_ptr(), 0, stream) == 0
+        assert lib.lfs_stream_sums_words(x.data_ptr(), x.numel(), out.data_ptr(), 0, 0,
+                                         stream) == 0
         return median_ms(lambda: lib.lfs_stream_sums_words(x.data_ptr(), x.numel(),
-                                                           out.data_ptr(), 0, stream), 7, 10)
+                                                           out.data_ptr(), 0, 0, stream), 7, 10)
 
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     wave = W.words_wave_blocks()
@@ -1972,6 +1979,136 @@ def time_matmul_tier(na_words: np.ndarray, card: str) -> dict:
     return rows
 
 
+#: phase 4o's traced call, run in a process of its own: a process's
+#: second torch.profiler session (after phase 4j's) recorded no device
+#: activity on the card's host. Prints the trace's event names.
+TRACE_CALL = """
+import json, torch
+from torch.profiler import ProfilerActivity, profile
+import libflagstats_tpu_torch as L
+from libflagstats_tpu_torch.oracle import flagstat_numpy, generate_flags
+x = generate_flags(1 << 22, seed=5, full_range=True)
+xd = torch.from_numpy(x).cuda()
+want = flagstat_numpy(x)
+assert (L.flagstats_u16(xd) == want).all()
+with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    got = L.flagstats_u16(xd)
+    torch.cuda.synchronize()
+assert (got == want).all()
+print(json.dumps(sorted({e.key for e in prof.key_averages()})))
+"""
+
+
+def one_shot_walls(fn, calls: int) -> list[float]:
+    """Host walls (s) of ``calls`` calls of fn(), each waiting for its
+    result, after 20 untimed ones."""
+    for _ in range(20):
+        fn()
+    walls = []
+    for _ in range(calls):
+        t0 = time.perf_counter()
+        fn()
+        walls.append(time.perf_counter() - t0)
+    return walls
+
+
+def plain_epilogue_call(xd: torch.Tensor) -> np.ndarray:
+    """A card-tensor count ending as the port's counts ended before the
+    epilogue kernel: K1 into a zeroed output, the two scatters of
+    ``_sums_to_streams``, ``assemble_counters``' torch ops and a pageable
+    readback."""
+    sums = K.stream_sums_cuda(xd, "flagstat")
+    return assemble_counters(*K._sums_to_streams(sums, False), xd.numel()).cpu().numpy()
+
+
+def check_epilogue(na_words: np.ndarray, card: str) -> None:
+    """Phase 4o: the epilogue kernel (ops/csrc/flagstat_epilogue.cu) on
+    the card. (1) It equals its plain twin on random int64 sums of every
+    kind, n up to 2^33, in both forms. (2) On the NA12878 column it
+    equals assemble_counters over the plain _sums_to_streams of K1's,
+    K3's and K6's sums, and every public card count (cuda, cuda_report,
+    cuda_words on the resident column; cuda_pre staged from the host)
+    gives the oracle's counters with one epilogue launch, also with the
+    column split into DEVICE_WORD_CAP chunks (one count and one epilogue
+    launch a chunk). (3) A torch.profiler trace of one resident call
+    (TRACE_CALL, in a process of its own) holds K1 and the epilogue, and
+    no pageable HtoD copy, index kernel or index_put_. (4) The host
+    walls of resident calls beside the former ending
+    (plain_epilogue_call), in turns."""
+    gen = np.random.default_rng(20)
+    for kind in K.EPILOGUE_KINDS:
+        for _ in range(4):
+            raw = gen.integers(0, 1 << 33, K.RAW_STREAMS[kind], dtype=np.int64)
+            for m in (None, 0, 1 << 33, int(gen.integers(1 << 33))):
+                got = K.epilogue_cuda(torch.from_numpy(raw).cuda(), kind, m).cpu()
+                assert torch.equal(got, K.epilogue_plain(torch.from_numpy(raw), kind, m)), \
+                    (kind, m)
+    print("epilogue (1): kernel = plain twin on random sums below 2^33, every kind, both forms")
+
+    n = na_words.size
+    ref = oracle_counts(na_words).astype(np.int64)
+    idx = list(F.REPORT_COUNTERS)
+    xd = torch.from_numpy(na_words).cuda()
+    acc = torch.empty(2 * W.BITS, dtype=torch.int64, device="cuda")
+    for kind, raw, streams in (
+            ("flagstat", K.stream_sums_cuda(xd, "flagstat"),
+             lambda s: K._sums_to_streams(s, False)),
+            ("flagstat_report", K.stream_sums_cuda(xd, "flagstat_report"),
+             lambda s: K._sums_to_streams(s, True)),
+            ("words", W.stream_sums_words_cuda(xd, out=acc, zero=True),
+             W._pass_fail_to_streams)):
+        want = assemble_counters(*streams(raw), n)
+        got = K.epilogue_cuda(raw, kind, n)
+        assert torch.equal(got, want), (kind, got, want)
+        assert torch.equal(K.epilogue_cuda(raw, kind), torch.cat(streams(raw))), kind
+
+    def check(c: np.ndarray, impl: str) -> None:
+        c = c.astype(np.int64)
+        if impl == "cuda_report":
+            assert (c[idx] == ref[idx]).all() and (c[REPORT_ZEROS] == 0).all(), (impl, c)
+        else:
+            assert (c == ref).all(), (impl, c, ref)
+
+    cap = D.DEVICE_WORD_CAP
+    for chunks, word_cap in ((1, cap), (-(-n // EPILOGUE_CAP), EPILOGUE_CAP)):
+        D.DEVICE_WORD_CAP = word_cap
+        try:
+            for impl in ("cuda", "cuda_report", "cuda_words", "cuda_pre"):
+                before = dict(K.LAUNCHES)
+                check(L.flagstats_u16(na_words if impl == "cuda_pre" else xd, impl=impl), impl)
+                ran = {m: K.LAUNCHES[m] - before[m] for m in K.LAUNCHES}
+                assert ran["epilogue"] == chunks, (impl, chunks, ran)
+                if impl != "cuda_pre":
+                    mode = {"cuda": "flagstat", "cuda_report": "flagstat_report",
+                            "cuda_words": "words"}[impl]
+                    assert ran[mode] == chunks, (impl, chunks, ran)
+        finally:
+            D.DEVICE_WORD_CAP = cap
+        print(f"epilogue (2): NA12878 in {chunks} chunk(s): cuda, cuda_report, cuda_words "
+              f"(resident) and cuda_pre (staged) = oracle, one epilogue launch a chunk")
+
+    r = subprocess.run([sys.executable, "-c", TRACE_CALL], cwd=REPO, capture_output=True,
+                       text=True, timeout=600)
+    assert r.returncode == 0, r.stderr[-4000:]
+    names = json.loads(r.stdout.strip().splitlines()[-1])
+    print(f"epilogue (3): one resident call's trace: {names}")
+    assert any("stream_sums_kernel" in k for k in names), names
+    assert any("epilogue_kernel" in k for k in names), names
+    assert not [k for k in names if "HtoD" in k and "Pageable" in k], names
+    assert not [k for k in names if "index" in k.lower()], names
+
+    walls = {"epilogue kernel": [], "former ending": []}
+    for _ in range(2):
+        for label, fn in (("epilogue kernel", lambda: L.flagstats_u16(xd)),
+                          ("former ending", lambda: plain_epilogue_call(xd))):
+            walls[label] += one_shot_walls(fn, WALL_CALLS // 2)
+    for label, w in walls.items():
+        q = statistics.quantiles(w, n=10)
+        print(f"[{card}] epilogue (4): resident NA12878 call, {label}: median "
+              f"{statistics.median(w) * 1e3:.4f} ms, p90 {q[-1] * 1e3:.4f} ms over {len(w)} "
+              f"calls (host clock, in turns)")
+
+
 @contextlib.contextmanager
 def phase(name: str):
     """Print what a phase took (host clock), so a run says where its time went."""
@@ -2144,6 +2281,13 @@ def main(argv=None) -> int:
                 workers = drive_fault_path(tmp, card)
             print(f"fault-path launches (phase 4n): this process {dict(K.LAUNCHES)}, "
                   f"its workers' {workers}")
+
+        if "4o" in run:
+            zero_launches()
+            with phase("4o, the epilogue kernel"):
+                check_epilogue(na12878(), card)
+            print(f"epilogue-path launches (phase 4o): {dict(K.LAUNCHES)}")
+            assert K.LAUNCHES["epilogue"] > 0
 
     if "4s" in run:
         zero_launches()

@@ -12,10 +12,12 @@ the host decodes the next runs. For
 ``impl="cuda_pre"`` a run is decoded into a host staging buffer instead,
 and a 2-thread stage bit-transposes it into packed plane tiles (24
 rows, 20 in report mode) written straight into a pinned slot, so that
-decode(i+2), transpose(i+1) and copy+count(i) overlap. Counters
-accumulate on the device as the (C[k], F[k]) stream-sum pair; only the
-final 32-counter vector comes back (reference counterpart: the
-per-block accumulate loop, benchmark/flagstats.cpp:311-332). The
+decode(i+2), transpose(i+1) and copy+count(i) overlap. Each run's
+kernel adds its sums into one accumulator on the device in place
+(``ops/staging.Tally``); only the final 32 counters come back, written
+by the epilogue kernel into a pinned host buffer (reference
+counterpart: the per-block accumulate loop,
+benchmark/flagstats.cpp:311-332). The
 framed-file leg of ``parallel.multihost`` counts its block range through
 the same loop (``framed_range_sums``).
 
@@ -55,8 +57,7 @@ from ..ops import dispatch as D
 from ..ops import kernels as K
 from ..ops import native_host
 from ..ops.bitslice import pretranspose_host_packed
-from ..ops.staging import _Ring, piece_sums
-from ..ops.torch_ops import assemble_counters, stream_sums_from_numpy
+from ..ops.staging import Tally, _Ring
 from . import codec as C
 from . import native_lib
 
@@ -156,11 +157,11 @@ def _host_i32(t: torch.Tensor) -> np.ndarray:
     return t.cpu().numpy().astype(np.int32)
 
 
-#: (C[k], F[k]) of one shipped chunk, enqueued on the chunk's device: the
-#: count of the device stream. A module-level name, so that a measurement
-#: can wrap it (tools/pipeline_balance.py synchronises after it to forbid
-#: any overlap)
-_chunk_sums = piece_sums
+#: count one shipped chunk into the stream's tally, enqueued on the
+#: chunk's device: the count of the device stream. A module-level name, so
+#: that a measurement can wrap it (tools/pipeline_balance.py synchronises
+#: after it to forbid any overlap)
+_chunk_sums = Tally.add
 
 
 def _index_frames(buf, size: int) -> tuple[list[tuple[int, int, int]], str | None]:
@@ -266,14 +267,13 @@ class _FramedFile:
 
 
 class _Sums:
-    """The device stream's count at a block boundary: the epoch's
-    (C[k], F[k]) sums on the device, the host uint64 grand total of the
-    epochs rolled before it, the epoch's and the stream's words, and the
-    next block. Starts from a ``"sums"`` checkpoint when one is given."""
+    """The device stream's count at a block boundary: the epoch's sums in
+    a ``Tally`` on the device, the host uint64 grand total of the epochs
+    rolled before it, the epoch's and the stream's words, and the next
+    block. Starts from a ``"sums"`` checkpoint when one is given."""
 
-    def __init__(self, dev: torch.device, checkpoint=None):
-        self.total = torch.zeros(F.N_BITS, dtype=torch.int64, device=dev)
-        self.fail = torch.zeros_like(self.total)
+    def __init__(self, dev: torch.device, impl: str, report: bool = False, checkpoint=None):
+        self.tally = Tally(impl, dev, report)
         self.grand = np.zeros(F.N_COUNTERS, dtype=np.uint64)
         self.epoch_words = self.n_words = self.block = 0
         if checkpoint is not None and checkpoint.block_index > 0:
@@ -281,29 +281,26 @@ class _Sums:
                 raise ValueError(
                     "checkpoint was written by the native host path (final "
                     "counters); it cannot resume a device-path run")
-            self.total, self.fail = stream_sums_from_numpy(checkpoint.total,
-                                                           checkpoint.fail, dev)
+            self.tally.seed(checkpoint.total, checkpoint.fail)
             self.grand = checkpoint.grand.astype(np.uint64)
             self.epoch_words = checkpoint.epoch_words
             self.n_words = checkpoint.n_words
             self.block = checkpoint.block_index
 
     def roll(self) -> None:
-        """Assemble the epoch's counters into the grand total and reset
-        the device sums: every sum and the derived pass total stay within
-        int32, so a checkpoint holds what the JAX package can resume (the
-        block-accumulative contract makes the split exact; reference:
-        flagstats.cpp:311-332)."""
-        counters = assemble_counters(self.total, self.fail, self.epoch_words)
-        self.grand += counters.cpu().numpy().astype(np.uint64)
-        self.total = torch.zeros_like(self.total)
-        self.fail = torch.zeros_like(self.fail)
+        """Add the epoch's counters into the grand total and start the
+        device sums again: every sum and the derived pass total stay
+        within int32, so a checkpoint holds what the JAX package can
+        resume (the block-accumulative contract makes the split exact;
+        reference: flagstats.cpp:311-332)."""
+        self.grand += self.tally.counters(self.epoch_words)
+        self.tally.clear()
         self.epoch_words = 0
 
-    def counters(self) -> np.ndarray:
-        """The stream's 32 counters (uint64); waits for the device."""
-        epoch = assemble_counters(self.total, self.fail, self.epoch_words)
-        return self.grand + epoch.cpu().numpy().astype(np.uint64)
+    def counters(self, timer=None) -> np.ndarray:
+        """The stream's 32 counters (uint64); waits for the device (span
+        ``lfs.readback``, ``timer``'s section ``final_sync``)."""
+        return self.grand + self.tally.counters(self.epoch_words, timer)
 
 
 def _count_frames(src: _FramedFile, sums: _Sums, stop: int, impl: str, chunk_words: int,
@@ -331,14 +328,14 @@ def _count_frames(src: _FramedFile, sums: _Sums, stop: int, impl: str, chunk_wor
     if pre:
         rows = K.packed_rows_for(report)
         groups = -(-slot_words // K.GROUP_WORDS)
-        ring = _Ring((groups, len(rows), K.SUB, K.LANE), torch.int32, sums.total.device,
+        ring = _Ring((groups, len(rows), K.SUB, K.LANE), torch.int32, sums.tally.device,
                      depth)
         # one per run in decode or in the transpose stage, and a spare
         stage = [np.empty(groups * K.GROUP_WORDS, dtype=np.uint16)
                  for _ in range(calls + PRE_WINDOW + 1)]
         xpool = cf.ThreadPoolExecutor(2, thread_name_prefix="pretrans")
     else:
-        ring = _Ring((slot_words,), torch.int16, sums.total.device, depth)
+        ring = _Ring((slot_words,), torch.int16, sums.tally.device, depth)
         xpool = None
     dpool = cf.ThreadPoolExecutor(calls, thread_name_prefix="decode")
     decoding: deque = deque()
@@ -365,9 +362,7 @@ def _count_frames(src: _FramedFile, sums: _Sums, stop: int, impl: str, chunk_wor
         # final_sync show where the host waits for the device
         chunk = ring.ship(slot, size, timer)
         with profiling.span("lfs.stream.dispatch", timer):
-            c, f = _chunk_sums(impl, chunk, report)
-            sums.total += c
-            sums.fail += f
+            _chunk_sums(sums.tally, chunk)
             ring.release(slot)
         sums.epoch_words += words
 
@@ -402,7 +397,8 @@ def _count_frames(src: _FramedFile, sums: _Sums, stop: int, impl: str, chunk_wor
         if every and b % every == 0:
             drain()
             with profiling.span("lfs.stream.checkpoint", timer):
-                checkpoint.maybe_save(b, _host_i32(sums.total), _host_i32(sums.fail),
+                total, fail = sums.tally.streams()
+                checkpoint.maybe_save(b, _host_i32(total), _host_i32(fail),
                                       sums.n_words, grand=sums.grand,
                                       epoch_words=sums.epoch_words)
 
@@ -499,14 +495,14 @@ def flagstat_stream(path, codec: str | int = "lz4", impl: str | None = None,
         src = _FramedFile(path, codec)
         try:
             call.note(frames=len(src.frames))
-            sums = _Sums(dev, checkpoint)
-            _count_frames(src, sums, len(src.frames), impl, chunk_words,
-                          report and impl != "torch", threads or CONFIG.decode_threads or 8,
-                          timer, checkpoint, D.DEVICE_WORD_CAP)
+            report = report and impl != "torch"
+            sums = _Sums(dev, impl, report, checkpoint)
+            _count_frames(src, sums, len(src.frames), impl, chunk_words, report,
+                          threads or CONFIG.decode_threads or 8, timer, checkpoint,
+                          D.DEVICE_WORD_CAP)
             if src.error is not None:
                 raise ValueError(src.error)
-            with profiling.span("lfs.readback", timer, "final_sync"):
-                return sums.counters()
+            return sums.counters(timer)
         finally:
             src.close()
 
@@ -524,14 +520,14 @@ def framed_range_sums(path, codec: str | int, start: int, stop: int, impl: str,
     try:
         if not 0 <= start <= stop:
             raise ValueError(f"bad block range [{start}, {stop})")
-        sums = _Sums(dev)
+        sums = _Sums(dev, impl)
         sums.block = start
         _count_frames(src, sums, min(stop, len(src.frames)), impl, chunk_words, False,
                       threads or CONFIG.decode_threads or 8, SectionTimer())
         if stop > len(src.frames):
             raise ValueError(src.error or f"block range [{start}, {stop}) outside "
                              f"{len(src.frames)}-block stream")
-        return sums.total, sums.fail
+        return sums.tally.streams()
     finally:
         src.close()
 

@@ -39,7 +39,8 @@
 // * No sequential grid: blocks run in any order. Each warp walks 2048-word
 //   tiles in a grid-stride loop and keeps its tallies in registers; at
 //   the end a warp-shuffle sum, a shared-memory sum per block and one
-//   64-bit atomicAdd per stream per block land in the zeroed output.
+//   64-bit atomicAdd per stream per block land in the output, which the
+//   launcher zeroes first or which holds earlier pieces' sums.
 //   Integer atomics are exact in any order.
 // * Loads: lane L of a warp reads 16-byte vectors L, L+32, ... of its
 //   tile, so each warp load instruction covers 512 contiguous bytes.
@@ -145,8 +146,12 @@ cudaError_t wave_blocks(int* blocks) {
 }
 
 template <int MODE>
-cudaError_t launch(const void* x, int64_t n, unsigned long long* out, int blocks,
+cudaError_t launch(const void* x, int64_t n, unsigned long long* out, int blocks, int zero,
                    cudaStream_t stream) {
+  if (zero) {
+    const cudaError_t z = cudaMemsetAsync(out, 0, Streams<MODE>::n * sizeof(*out), stream);
+    if (z != cudaSuccess) return z;
+  }
   if (n <= 0) return cudaSuccess;  // a 0-block launch is an error
   const uintptr_t addr = reinterpret_cast<uintptr_t>(x);
   const uintptr_t aligned = addr & ~uintptr_t(15);
@@ -170,16 +175,19 @@ cudaError_t launch(const void* x, int64_t n, unsigned long long* out, int blocks
 extern "C" {
 
 // Adds the per-stream counts of the n uint16 words at x into out
-// (int64[Streams<mode>::n], zeroed by the caller), on `stream`.
-// x must be 2-byte aligned. blocks > 0 is the most blocks the grid gets
-// (a sweep's knob); 0 gives it one wave at most. Returns a cudaError_t.
-int lfs_stream_sums(int mode, const void* x, long long n, void* out, int blocks, void* stream) {
+// (int64[Streams<mode>::n]), on `stream`; with zero != 0 a
+// cudaMemsetAsync on `stream` zeroes out first (also for n = 0, which
+// launches nothing). x must be 2-byte aligned. blocks > 0 is the most
+// blocks the grid gets (a sweep's knob); 0 gives it one wave at most.
+// Returns a cudaError_t.
+int lfs_stream_sums(int mode, const void* x, long long n, void* out, int blocks, int zero,
+                    void* stream) {
   auto* o = static_cast<unsigned long long*>(out);
   auto s = static_cast<cudaStream_t>(stream);
   switch (mode) {
-    case kFlagstat: return launch<kFlagstat>(x, n, o, blocks, s);
-    case kReport: return launch<kReport>(x, n, o, blocks, s);
-    case kPospopcnt: return launch<kPospopcnt>(x, n, o, blocks, s);
+    case kFlagstat: return launch<kFlagstat>(x, n, o, blocks, zero, s);
+    case kReport: return launch<kReport>(x, n, o, blocks, zero, s);
+    case kPospopcnt: return launch<kPospopcnt>(x, n, o, blocks, zero, s);
     default: return cudaErrorInvalidValue;
   }
 }

@@ -127,7 +127,11 @@ __global__ void __launch_bounds__(kThreads)
 
 template <int MODE, int R>
 cudaError_t launch_pre(const void* planes, int64_t groups, unsigned long long* out,
-                       int blocks, cudaStream_t stream) {
+                       int blocks, int zero, cudaStream_t stream) {
+  if (zero) {
+    const cudaError_t z = cudaMemsetAsync(out, 0, Streams<MODE>::n * sizeof(*out), stream);
+    if (z != cudaSuccess) return z;
+  }
   if (groups <= 0) return cudaSuccess;  // a 0-block launch is an error
   if (reinterpret_cast<uintptr_t>(planes) % 16) return cudaErrorInvalidValue;
   int wave = 0;
@@ -146,19 +150,24 @@ cudaError_t launch_pre(const void* planes, int64_t groups, unsigned long long* o
 extern "C" {
 
 // Adds the per-stream counts of `groups` (rows, 8, 128) uint32 plane
-// tiles at `planes` into out (int64[Streams<mode>::n], zeroed by the
-// caller), on `stream`. planes must be 16-byte aligned. blocks > 0 is
-// the most blocks the grid gets (a sweep's knob); 0 gives it one wave at
-// most. Returns a cudaError_t (cudaErrorInvalidValue for a (mode, rows)
-// pair with no kernel).
+// tiles at `planes` into out (int64[Streams<mode>::n]), on `stream`;
+// with zero != 0 a cudaMemsetAsync on `stream` zeroes out first (also
+// for groups = 0, which launches nothing). planes must be 16-byte
+// aligned. blocks > 0 is the most blocks the grid gets (a sweep's knob);
+// 0 gives it one wave at most. Returns a cudaError_t
+// (cudaErrorInvalidValue for a (mode, rows) pair with no kernel).
 int lfs_stream_sums_pre(int mode, int rows, const void* planes, long long groups,
-                        void* out, int blocks, void* stream) {
+                        void* out, int blocks, int zero, void* stream) {
   auto* o = static_cast<unsigned long long*>(out);
   auto s = static_cast<cudaStream_t>(stream);
-  if (mode == kFlagstat && rows == 32) return launch_pre<kFlagstat, 32>(planes, groups, o, blocks, s);
-  if (mode == kFlagstat && rows == 24) return launch_pre<kFlagstat, 24>(planes, groups, o, blocks, s);
-  if (mode == kReport && rows == 32) return launch_pre<kReport, 32>(planes, groups, o, blocks, s);
-  if (mode == kReport && rows == 20) return launch_pre<kReport, 20>(planes, groups, o, blocks, s);
+  if (mode == kFlagstat && rows == 32)
+    return launch_pre<kFlagstat, 32>(planes, groups, o, blocks, zero, s);
+  if (mode == kFlagstat && rows == 24)
+    return launch_pre<kFlagstat, 24>(planes, groups, o, blocks, zero, s);
+  if (mode == kReport && rows == 32)
+    return launch_pre<kReport, 32>(planes, groups, o, blocks, zero, s);
+  if (mode == kReport && rows == 20)
+    return launch_pre<kReport, 20>(planes, groups, o, blocks, zero, s);
   return cudaErrorInvalidValue;
 }
 

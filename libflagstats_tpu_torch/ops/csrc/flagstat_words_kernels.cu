@@ -7,8 +7,9 @@
 // bit transpose: for each transformed bit k < 15, the number of 16-bit
 // words whose transformed word has bit k set, once over QC-pass words
 // (P[k]) and once over QC-fail words (F[k]). The output is int64[30],
-// P[0..14] then F[0..14]; the wrapper forms (C[k], F[k]) = (P[k] + F[k],
-// F[k]). Transformed bit 15 is always 0, so it is not counted.
+// P[0..14] then F[0..14]; the epilogue (flagstat_epilogue.cu, or the
+// plain version on the CPU) forms (C[k], F[k]) = (P[k] + F[k], F[k]).
+// Transformed bit 15 is always 0, so it is not counted.
 //
 // What bounds it on this card. The kernel reads 2 bytes per word once
 // (3.35 TB/s nominal on the H100 SXM). The TPU kernel's SWAR transform
@@ -277,12 +278,19 @@ __global__ void __launch_bounds__(kThreads)
 extern "C" {
 
 // Adds the pass/fail bit counts of the n uint16 words at x into out
-// (int64[30], zeroed by the caller), on `stream`. x must be 2-byte
-// aligned. blocks > 0 is the most blocks the grid gets (a sweep's knob,
-// and the tests' way to run one thread far past a flush); 0 gives it one
-// wave at most.
+// (int64[30]), on `stream`; with zero != 0 a cudaMemsetAsync on `stream`
+// zeroes out first (also for n = 0, which launches nothing). x must be
+// 2-byte aligned. blocks > 0 is the most blocks the grid gets (a sweep's
+// knob, and the tests' way to run one thread far past a flush); 0 gives
+// it one wave at most.
 // Returns a cudaError_t.
-int lfs_stream_sums_words(const void* x, long long n, void* out, int blocks, void* stream) {
+int lfs_stream_sums_words(const void* x, long long n, void* out, int blocks, int zero,
+                          void* stream) {
+  if (zero) {
+    const cudaError_t z = cudaMemsetAsync(out, 0, kStreams * sizeof(unsigned long long),
+                                          static_cast<cudaStream_t>(stream));
+    if (z != cudaSuccess) return z;
+  }
   if (n <= 0) return cudaSuccess;  // a 0-block launch is an error
   const uintptr_t addr = reinterpret_cast<uintptr_t>(x);
   const uintptr_t aligned = addr & ~uintptr_t(15);

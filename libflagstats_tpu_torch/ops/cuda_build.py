@@ -30,6 +30,14 @@ BUILD_LOG = ""
 _lib = None
 
 
+class EpilogueMap(ctypes.Structure):
+    """``EpilogueMap`` of csrc/flagstat_epilogue.cu, passed by value: for
+    each FLAG bit k the accumulator's entries of C[k] (``c``, plus ``c2``)
+    and of F[k] (``f``), -1 for none; ``qc`` the QC-fail bit."""
+    _fields_ = [("c", ctypes.c_int8 * 16), ("c2", ctypes.c_int8 * 16),
+                ("f", ctypes.c_int8 * 16), ("qc", ctypes.c_int8)]
+
+
 def _sources() -> list[Path]:
     return sorted(p for p in CSRC.iterdir() if p.suffix in (".cu", ".cuh"))
 
@@ -89,7 +97,7 @@ def load() -> ctypes.CDLL:
         lib = ctypes.CDLL(str(build()))
         lib.lfs_stream_sums.argtypes = [ctypes.c_int, ctypes.c_void_p,
                                         ctypes.c_int64, ctypes.c_void_p,
-                                        ctypes.c_int, ctypes.c_void_p]
+                                        ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
         lib.lfs_stream_sums.restype = ctypes.c_int
         lib.lfs_wave_blocks.argtypes = [ctypes.c_int,
                                         ctypes.POINTER(ctypes.c_int)]
@@ -99,14 +107,14 @@ def load() -> ctypes.CDLL:
         lib.lfs_stream_sums_pre.argtypes = [ctypes.c_int, ctypes.c_int,
                                             ctypes.c_void_p, ctypes.c_int64,
                                             ctypes.c_void_p, ctypes.c_int,
-                                            ctypes.c_void_p]
+                                            ctypes.c_int, ctypes.c_void_p]
         lib.lfs_stream_sums_pre.restype = ctypes.c_int
         lib.lfs_pre_wave_blocks.argtypes = [ctypes.c_int, ctypes.c_int,
                                             ctypes.POINTER(ctypes.c_int)]
         lib.lfs_pre_wave_blocks.restype = ctypes.c_int
         lib.lfs_stream_sums_words.argtypes = [ctypes.c_void_p, ctypes.c_int64,
                                               ctypes.c_void_p, ctypes.c_int,
-                                              ctypes.c_void_p]
+                                              ctypes.c_int, ctypes.c_void_p]
         lib.lfs_stream_sums_words.restype = ctypes.c_int
         lib.lfs_words_wave_blocks.argtypes = [ctypes.POINTER(ctypes.c_int)]
         lib.lfs_words_wave_blocks.restype = ctypes.c_int
@@ -119,7 +127,8 @@ def load() -> ctypes.CDLL:
                            ("lfs_transform_xor", [vp, i64, i32, vp, vp]),
                            ("lfs_stream_sums_raw", [vp, i64, i32, vp, vp]),
                            ("lfs_fold_xor", [vp, i64, i32, u32, vp, vp]),
-                           ("lfs_setop_count_cuda", [i32, vp, vp, i64, vp, vp])):
+                           ("lfs_setop_count_cuda", [i32, vp, vp, i64, vp, vp]),
+                           ("lfs_epilogue", [vp, vp, EpilogueMap, i64, i32, vp, vp, vp])):
             getattr(lib, name).argtypes = args
             getattr(lib, name).restype = ctypes.c_int
         _lib = lib

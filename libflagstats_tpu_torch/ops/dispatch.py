@@ -32,9 +32,12 @@ kernel masks its own ragged edge, so nothing is padded on the host.
 A kernel tier given a host column (a numpy array or a CPU tensor)
 counts it through ``ops/staging.py``: pieces of ``STAGE_WORDS`` words
 copied into pinned slots, shipped on a side stream and counted one
-launch a piece, the sums accumulating on the device (on the CPU the
-same loop runs the plain versions). Words already on a card are counted
-where they lie; ``"torch"`` and ``"torch_matmul"`` copy a column whole.
+launch a piece, the sums accumulating in place on the device (on the CPU
+the same loop runs the plain versions). Words already on a card are
+counted where they lie; ``"torch"`` and ``"torch_matmul"`` copy a column
+whole. On a card a kernel tier's count ends in the epilogue kernel,
+which writes the 32 counters, a copy of them into a pinned host buffer
+and one wait (``staging.Tally``).
 
 ``impl="native"`` (the host AVX2 kernels of the native library),
 ``impl="cuda_pre"`` (host packed bit transpose, then the plane-tile
@@ -51,10 +54,9 @@ from .. import flags as F
 from ..bench import profiling
 from ..oracle import flagstat_numpy
 from . import native_host
-from .kernels import pospopcnt_u16_cuda
-from .staging import piece_sums, staged_sums
-from .torch_ops import (as_words, assemble_counters, flagstat_torch, pospopcnt_u16_matmul,
-                        pospopcnt_u16_torch)
+from .kernels import host_counts, pospopcnt_u16_cuda
+from .staging import Tally, stage, staged_sums
+from .torch_ops import as_words, flagstat_torch, pospopcnt_u16_matmul, pospopcnt_u16_torch
 
 #: implementation registry
 FLAGSTAT_IMPLS = {
@@ -167,13 +169,6 @@ def _target_device(impl: str, device, words: torch.Tensor) -> torch.device:
     return device
 
 
-def _host_counts(t: torch.Tensor) -> np.ndarray:
-    """The counters on the host (span ``lfs.readback``): waits for the
-    device."""
-    with profiling.span("lfs.readback"):
-        return t.cpu().numpy().astype(np.uint64)
-
-
 def _host_words(words) -> np.ndarray:
     if isinstance(words, torch.Tensor):
         return words.cpu().numpy().view(np.uint16)
@@ -197,17 +192,18 @@ def get_function(n_len: int, impl: str | None = None, device=None):
         words = as_words(_validate_u16(arr))
         target = _target_device(impl, device, words)
         if impl == "torch":
-            return _host_counts(flagstat_torch(words.to(target)))
+            return host_counts(flagstat_torch(words.to(target)))
         kind, report = ("cuda", True) if impl == "cuda_report" else (impl, False)
+        tally = Tally(kind, target, report, scratch=True)
         if impl == "cuda_pre" or words.device.type == "cpu":
             # a host column, in pinned pieces; cuda_pre transposes each
             # into packed tiles on the host: 25% fewer bytes cross the bus
             # and are read than raw words (dispatch.py:283-300 of the JAX
             # package)
-            (total, fail), = staged_sums([(words.cpu(), target)], kind, report)
+            stage([(words.cpu(), tally)])
         else:
-            total, fail = piece_sums(kind, words.to(target), report)
-        return _host_counts(assemble_counters(total, fail, words.numel()))
+            tally.add(words.to(target))
+        return tally.counters(words.numel())
 
     return run
 
@@ -299,7 +295,7 @@ def pospopcnt_u16(array, impl: str | None = None, device=None) -> np.ndarray:
         w = as_words(chunk)
         target = _target_device(impl, device, w)
         if impl == "cuda" and w.device.type == "cpu":
-            acc += _host_counts(staged_sums([(w, target)], "pospopcnt")[0])
+            acc += host_counts(staged_sums([(w, target)], "pospopcnt")[0])
         else:
-            acc += _host_counts(fn(w.to(target)))
+            acc += host_counts(fn(w.to(target)))
     return acc

@@ -20,11 +20,24 @@ or the packed 24/20 (K2, ``stream_sums_pallas_pre``).
 
 All return per-stream sums as (n_streams,) int64 in the stream order of
 ``bitslice.C_STREAMS + F_STREAMS`` (or the REPORT_* order, or bits 0-15).
+Given ``out``, an int64 accumulator, a wrapper adds into it in place
+(``zero=True``: the launcher zeroes it first) and returns it, so that a
+column's pieces add up on the card with no torch op between launches.
+
+* ``epilogue_cuda(acc, kind, n)`` launches the epilogue kernel
+  (ops/csrc/flagstat_epilogue.cu) over such an accumulator: (C[k], F[k])
+  or the 32 counters, through the map ``epilogue_map(kind)`` passed by
+  value; ``counters_cuda`` reads the counters back into this thread's
+  pinned buffer with one wait. ``epilogue_plain`` applies the same map in
+  torch: the kernel's twin. On a CPU tensor the paths keep the plain
+  versions, ``_sums_to_streams`` and ``torch_ops.assemble_counters``.
 """
 from __future__ import annotations
 
 import ctypes
+import threading
 
+import numpy as np
 import torch
 
 from .. import flags as F
@@ -54,8 +67,17 @@ PRE_MODES = ("pre", "pre_report")
 PROBES = ("read_xor", "raw", "transpose_xor", "transform_xor")
 #: kernel launches per mode, counted where the kernel is launched and
 #: nowhere else ("words": K6, ops/words_kernels.py; "fold_xor": K8,
-#: ops/probe_kernels.py; "setop": K9, ops/setalgebra.py)
-LAUNCHES = {m: 0 for m in MODES + PRE_MODES + ("words",) + PROBES + ("fold_xor", "setop")}
+#: ops/probe_kernels.py; "setop": K9, ops/setalgebra.py; "epilogue": the
+#: epilogue kernel, epilogue_cuda)
+LAUNCHES = {m: 0 for m in MODES + PRE_MODES + ("words",) + PROBES
+            + ("fold_xor", "setop", "epilogue")}
+
+#: the epilogue's kinds of accumulator: K1/K3's (and K2's) stream orders
+#: in flagstat and report mode, and K6's pass bits then fail bits
+EPILOGUE_KINDS = ("flagstat", "flagstat_report", "words")
+#: int64 sums each kind's accumulator holds
+RAW_STREAMS = {"flagstat": B.N_STREAMS, "flagstat_report": B.N_REPORT_STREAMS,
+               "words": 2 * B.N_PLANES}
 
 #: packed plane-tile row orders: the flagstat transform never reads the
 #: planes of FLAG bits 12-15 (nor, in report mode, of bits 4 and 5), so
@@ -258,8 +280,37 @@ def _check_blocks(blocks) -> int:
     return blocks
 
 
+def accumulator(out, zero: bool, n_sums: int, device: torch.device):
+    """(the int64 buffer a launcher adds ``n_sums`` sums into, whether it
+    zeroes it first): a new one, zeroed, when ``out`` is None; else
+    ``out``, checked, for the launcher to take as it is."""
+    if out is None:
+        return torch.empty(n_sums, dtype=torch.int64, device=device), True
+    if not isinstance(out, torch.Tensor) or out.dtype != torch.int64:
+        raise ValueError("out must be an int64 tensor")
+    if out.device != device:
+        raise ValueError(f"out lies on {out.device}, the input on {device}")
+    if out.numel() < n_sums or not out.is_contiguous():
+        raise ValueError(f"out must be a contiguous int64 tensor of at least {n_sums} sums")
+    return out, bool(zero)
+
+
+def add_plain(out, sums: torch.Tensor, zero: bool) -> torch.Tensor:
+    """The launchers' accumulation on a CPU tensor: ``sums`` as they
+    are without ``out``, else copied (``zero``) or added into it."""
+    if out is None:
+        return sums
+    out, zero = accumulator(out, zero, sums.numel(), sums.device)
+    if zero:
+        out[:sums.numel()] = sums
+    else:
+        out[:sums.numel()] += sums
+    return out
+
+
 def stream_sums_cuda(x: torch.Tensor, mode: str = "flagstat",
-                     blocks: int | None = None) -> torch.Tensor:
+                     blocks: int | None = None, out: torch.Tensor | None = None,
+                     zero: bool = False) -> torch.Tensor:
     """Per-stream sums through the CUDA kernel -> (n_streams,) int64.
 
     ``x``: a contiguous uint16 (or int16 view) tensor. On a CUDA tensor
@@ -268,25 +319,28 @@ def stream_sums_cuda(x: torch.Tensor, mode: str = "flagstat",
     aligned start (an odd-offset slice, say) is taken as it is.
     ``blocks`` is the most blocks the grid gets, the one geometry knob of
     a kernel whose blocks stride over the input (tools/kernel_sweep.py
-    sweeps it); None gives one full wave (``wave_blocks``)."""
+    sweeps it); None gives one full wave (``wave_blocks``). ``out``: an
+    int64 accumulator on ``x``'s device that the sums are added into and
+    that is returned (``zero``: zeroed first, by a cudaMemsetAsync in the
+    launcher); None gives a new one, zeroed so. An empty ``x`` launches
+    no kernel."""
     with launch_span(mode, x):
         _check_mode(mode)
         blocks = _check_blocks(blocks)
         if check_cuda_words(x):
-            return stream_sums_plain(x, mode)
-        out = torch.zeros(N_STREAMS[mode], dtype=torch.int64, device=x.device)
-        if x.numel() == 0:
-            return out
+            return add_plain(out, stream_sums_plain(x, mode), zero)
+        out, zero = accumulator(out, zero, N_STREAMS[mode], x.device)
         from . import cuda_build
 
         lib = cuda_build.load()
         with torch.cuda.device(x.device):
             stream = torch.cuda.current_stream().cuda_stream
             err = lib.lfs_stream_sums(_MODE_ID[mode], x.data_ptr(), x.numel(),
-                                      out.data_ptr(), blocks, stream)
+                                      out.data_ptr(), blocks, zero, stream)
         if err:
             raise RuntimeError(f"stream_sums kernel ({mode}) failed: cudaError {err}")
-        LAUNCHES[mode] += 1
+        if x.numel():
+            LAUNCHES[mode] += 1
         return out
 
 
@@ -366,7 +420,8 @@ def stream_sums_pre_plain(planes: torch.Tensor, report: bool = False,
 
 
 def stream_sums_pre_cuda(planes: torch.Tensor, report: bool = False,
-                         packed: bool = False, blocks: int | None = None) -> torch.Tensor:
+                         packed: bool = False, blocks: int | None = None,
+                         out: torch.Tensor | None = None, zero: bool = False) -> torch.Tensor:
     """Per-stream sums of plane tiles through K2 -> (n_streams,) int64.
 
     ``planes`` as for stream_sums_pre_plain; on a CUDA tensor it must be
@@ -374,12 +429,13 @@ def stream_sums_pre_cuda(planes: torch.Tensor, report: bool = False,
     (ops/csrc/flagstat_pre_kernels.cu) or raises. A CPU tensor takes the
     plain version. No group count is padded: a CUDA block takes one
     group per turn of its loop, and zero tiles count nothing. ``blocks``
-    as for stream_sums_cuda (one wave: ``pre_wave_groups``)."""
+    as for stream_sums_cuda (one wave: ``pre_wave_groups``), and ``out``
+    and ``zero`` too."""
     with launch_span("pre_report" if report else "pre", planes):
         blocks = _check_blocks(blocks)
         planes32, rows = _check_planes(planes, report, packed)
         if planes.device.type == "cpu":
-            return stream_sums_pre_plain(planes, report, packed)
+            return add_plain(out, stream_sums_pre_plain(planes, report, packed), zero)
         if planes.device.type != "cuda":
             raise ValueError(f"the kernel runs on CUDA tensors, got {planes.device}")
         if not planes.is_contiguous():
@@ -387,21 +443,20 @@ def stream_sums_pre_cuda(planes: torch.Tensor, report: bool = False,
         if planes.data_ptr() % 16:
             raise ValueError("the kernel needs 16-byte aligned plane tiles")
         mode = "flagstat_report" if report else "flagstat"
-        out = torch.zeros(N_STREAMS[mode], dtype=torch.int64, device=planes.device)
+        out, zero = accumulator(out, zero, N_STREAMS[mode], planes.device)
         groups = planes.shape[0]
-        if groups == 0:
-            return out
         from . import cuda_build
 
         lib = cuda_build.load()
         with torch.cuda.device(planes.device):
             stream = torch.cuda.current_stream().cuda_stream
             err = lib.lfs_stream_sums_pre(_MODE_ID[mode], len(rows), planes32.data_ptr(),
-                                          groups, out.data_ptr(), blocks, stream)
+                                          groups, out.data_ptr(), blocks, zero, stream)
         if err:
             raise RuntimeError(f"stream_sums_pre kernel ({mode}, {len(rows)} rows) "
                                f"failed: cudaError {err}")
-        LAUNCHES["pre_report" if report else "pre"] += 1
+        if groups:
+            LAUNCHES["pre_report" if report else "pre"] += 1
         return out
 
 
@@ -433,24 +488,174 @@ def _sums_to_streams(sums: torch.Tensor, report: bool) -> tuple[torch.Tensor, to
     return total, fail
 
 
+# ---- the epilogue: an accumulator's sums -> (C[k], F[k]) or the 32 counters
+
+def epilogue_map(kind: str) -> tuple[tuple[int, ...], tuple[int, ...], tuple[int, ...]]:
+    """(c, c2, f) of one kind of accumulator (``EPILOGUE_KINDS``), from
+    bitslice's stream orders: for each FLAG bit k, C[k] = acc[c[k]] +
+    acc[c2[k]] and F[k] = acc[f[k]], an index of -1 reading 0. K1, K3
+    and K2 hold C then F in ``C_STREAMS + F_STREAMS`` (or the REPORT_*)
+    order; K6 holds the pass bits 0-14 then the fail bits 0-14, so C[k]
+    is their sum."""
+    c, c2, f = [-1] * F.N_BITS, [-1] * F.N_BITS, [-1] * F.N_BITS
+    if kind == "words":
+        for k in range(B.N_PLANES):
+            c[k], c2[k], f[k] = k, B.N_PLANES + k, B.N_PLANES + k
+    elif kind in ("flagstat", "flagstat_report"):
+        report = kind == "flagstat_report"
+        c_streams = B.REPORT_C_STREAMS if report else B.C_STREAMS
+        f_streams = B.REPORT_F_STREAMS if report else B.F_STREAMS
+        for i, k in enumerate(c_streams):
+            c[k] = i
+        for j, k in enumerate(f_streams):
+            f[k] = len(c_streams) + j
+    else:
+        raise ValueError(f"unknown epilogue kind {kind!r}; expected one of {EPILOGUE_KINDS}")
+    return tuple(c), tuple(c2), tuple(f)
+
+
+def epilogue_plain(acc: torch.Tensor, kind: str, n=None) -> torch.Tensor:
+    """The epilogue kernel's arithmetic in torch, on the map it is given
+    -> (32,) int64: (C[16], F[16]) of ``acc``, or with ``n`` the 32
+    counters of n words (pass[k] = C[k] - F[k], fail[k] = F[k]; at the
+    QC-fail bit n - C and C)."""
+    c, c2, f = epilogue_map(kind)
+    a = torch.cat([acc.to(torch.int64).reshape(-1)[:RAW_STREAMS[kind]],
+                   acc.new_zeros(1, dtype=torch.int64)])   # index -1 reads this 0
+    total = a[list(c)] + a[list(c2)]
+    fail = a[list(f)]
+    if n is None:
+        return torch.cat([total, fail])
+    q = F.FQCFAIL_OFF
+    passed = total - fail
+    passed[q] = int(n) - total[q]
+    failed = fail.clone()
+    failed[q] = total[q]
+    return torch.cat([passed, failed])
+
+
+_MAP_ARGS: dict = {}
+
+
+def _map_arg(kind: str):
+    """The ctypes ``EpilogueMap`` of ``kind``, built once."""
+    arg = _MAP_ARGS.get(kind)
+    if arg is None:
+        from .cuda_build import EpilogueMap
+
+        row = ctypes.c_int8 * F.N_BITS
+        arg = _MAP_ARGS[kind] = EpilogueMap(*(row(*m) for m in epilogue_map(kind)),
+                                            F.FQCFAIL_OFF)
+    return arg
+
+
+def epilogue_cuda(acc: torch.Tensor, kind: str, n=None, out: torch.Tensor | None = None,
+                  host: torch.Tensor | None = None, done=None) -> torch.Tensor:
+    """Enqueue the epilogue kernel over a card accumulator -> ``out``,
+    (32,) int64 on its device (a new one when None): (C[16], F[16]) of
+    ``acc``, or with ``n`` the 32 counters of n words. ``host`` (pinned
+    int64[32]) gets a copy of ``out``, and ``done`` (a torch.cuda.Event
+    created on the device) is recorded after it. One launch
+    (``LAUNCHES["epilogue"]``), no wait; span ``lfs.assemble``."""
+    with profiling.span("lfs.assemble"):
+        if acc.device.type != "cuda" or acc.dtype != torch.int64 or not acc.is_contiguous():
+            raise ValueError("the epilogue reads a contiguous int64 accumulator on a "
+                             f"CUDA device, got {acc.dtype} on {acc.device}")
+        if acc.numel() < RAW_STREAMS[kind]:
+            raise ValueError(f"a {kind} accumulator holds {RAW_STREAMS[kind]} sums, "
+                             f"got {acc.numel()}")
+        out, _ = accumulator(out, False, F.N_COUNTERS, acc.device)
+        from . import cuda_build
+
+        lib = cuda_build.load()
+        with torch.cuda.device(acc.device):
+            stream = torch.cuda.current_stream().cuda_stream
+            err = lib.lfs_epilogue(acc.data_ptr(), out.data_ptr(), _map_arg(kind),
+                                   0 if n is None else int(n), n is not None,
+                                   None if host is None else host.data_ptr(),
+                                   None if done is None else done.cuda_event, stream)
+        if err:
+            raise RuntimeError(f"epilogue kernel ({kind}) failed: cudaError {err}")
+        LAUNCHES["epilogue"] += 1
+        return out
+
+
+class _Scratch:
+    """One thread's buffers for counts read back from one card: the
+    accumulator of its one-shot counts and the epilogue's output on the
+    card, the pinned int64[32] the counters are copied into, and the
+    event recorded after that copy. A call waits on the event and reads
+    the buffer before it returns, so a thread's uses never overlap, and
+    no two threads share one."""
+
+    def __init__(self, dev: torch.device):
+        self.acc = torch.empty(max(RAW_STREAMS.values()), dtype=torch.int64, device=dev)
+        self.out = torch.empty(F.N_COUNTERS, dtype=torch.int64, device=dev)
+        self.host = torch.empty(F.N_COUNTERS, dtype=torch.int64, pin_memory=True)
+        self.host_np = self.host.numpy()
+        self.done = torch.cuda.Event()
+        self.done.record(torch.cuda.current_stream(dev))   # made on dev
+
+
+_LOCAL = threading.local()
+
+
+def scratch(dev: torch.device) -> _Scratch:
+    """This thread's ``_Scratch`` for the CUDA device ``dev``, made at
+    its first use."""
+    by_dev = getattr(_LOCAL, "by_dev", None)
+    if by_dev is None:
+        by_dev = _LOCAL.by_dev = {}
+    s = by_dev.get(dev)
+    if s is None:
+        s = by_dev[dev] = _Scratch(dev)
+    return s
+
+
+def counters_cuda(acc: torch.Tensor, kind: str, n, timer=None) -> np.ndarray:
+    """The 32 counters of ``n`` words from a card accumulator, on the
+    host -> (32,) uint64: the epilogue (span ``lfs.assemble``), its copy
+    into this thread's pinned buffer, and one wait, on the event after
+    it (span ``lfs.readback``; ``timer``'s section ``final_sync``)."""
+    s = scratch(acc.device)
+    epilogue_cuda(acc, kind, n, s.out, s.host, s.done)
+    with profiling.span("lfs.readback", timer, "final_sync"):
+        s.done.synchronize()
+        return s.host_np.astype(np.uint64)
+
+
+def host_counts(t: torch.Tensor, timer=None) -> np.ndarray:
+    """Counts of a plain path on the host, uint64 (span ``lfs.readback``;
+    ``timer``'s section ``final_sync``): waits for the device."""
+    with profiling.span("lfs.readback", timer, "final_sync"):
+        return t.cpu().numpy().astype(np.uint64)
+
+
 def flagstat_cuda(x: torch.Tensor, n=None, report: bool = False) -> torch.Tensor:
-    """Flagstat counters of a uint16 word tensor -> (32,) int64.
+    """Flagstat counters of a uint16 word tensor -> (32,) int64, on its
+    device: on a CUDA tensor K1 (K3) and the epilogue kernel, on a CPU
+    tensor the plain versions.
 
     ``report=True`` counts the 21 report streams and leaves counters
     1, 3, 4, 5 and 17, 19, 20, 21 at 0."""
-    sums = stream_sums_cuda(x, "flagstat_report" if report else "flagstat")
-    total, fail = _sums_to_streams(sums, report)
-    return assemble_counters(total, fail, x.numel() if n is None else n)
+    mode = "flagstat_report" if report else "flagstat"
+    sums = stream_sums_cuda(x, mode)
+    n = x.numel() if n is None else n
+    if sums.device.type == "cuda":
+        return epilogue_cuda(sums, mode, n)
+    return assemble_counters(*_sums_to_streams(sums, report), n)
 
 
 def flagstat_cuda_pre(planes: torch.Tensor, n: int, report: bool = False,
                       packed: bool = False) -> torch.Tensor:
     """Flagstat counters over host-pretransposed plane tiles (see
-    stream_sums_pre_cuda) -> (32,) int64. ``n`` is the true (pre-padding)
-    word count for the derived pass-total (reference: libflagstats.h:429)."""
+    stream_sums_pre_cuda) -> (32,) int64, as flagstat_cuda. ``n`` is the
+    true (pre-padding) word count for the derived pass-total (reference:
+    libflagstats.h:429)."""
     sums = stream_sums_pre_cuda(planes, report, packed)
-    total, fail = _sums_to_streams(sums, report)
-    return assemble_counters(total, fail, n)
+    if sums.device.type == "cuda":
+        return epilogue_cuda(sums, "flagstat_report" if report else "flagstat", n)
+    return assemble_counters(*_sums_to_streams(sums, report), n)
 
 
 def flagstat_cuda_report(x: torch.Tensor, n=None) -> torch.Tensor:

@@ -27,7 +27,10 @@ bounded it (PERF.md). Redesigned for the card, a word costs ~5:
   the flush follow the kernel's turn count.
 
 Both return (C[k], F[k]), each (16,) int64: C over all words, F over
-QC-fail words (the JAX function's (total, fail)).
+QC-fail words (the JAX function's (total, fail)); on the card the
+epilogue kernel (``kernels.epilogue_cuda``, kind ``"words"``) forms them
+from the kernel's pass and fail bit counts. Given ``out``, the wrapper
+adds those int64[30] counts into it instead and returns it.
 """
 from __future__ import annotations
 
@@ -36,7 +39,8 @@ import ctypes
 import torch
 
 from .. import flags as F
-from .kernels import LAUNCHES, _check_blocks, _csa, check_cuda_words, launch_span
+from .kernels import (LAUNCHES, _check_blocks, _csa, accumulator, add_plain, check_cuda_words,
+                      epilogue_cuda, launch_span)
 from .torch_ops import _ONE16, _transform_words_packed, as_words, assemble_counters
 
 BITS = 15          # transformed bit 15 is always 0
@@ -104,6 +108,12 @@ def stream_sums_words_plain(x) -> tuple[torch.Tensor, torch.Tensor]:
     """(C[k], F[k]) of a uint16 word stream by the kernel's algorithm, on
     the device the tensor lies on. Pads the last turn with zero words
     (entry 0 of the table is 0: they count nothing)."""
+    return _pass_fail_to_streams(_bit_counts_plain(x))
+
+
+def _bit_counts_plain(x) -> torch.Tensor:
+    """The kernel's output, int64[30] (pass bits 0-14, then fail bits
+    0-14), by its algorithm."""
     if FLUSH_BODIES % (2 * L2_TURNS):
         raise ValueError(f"FLUSH_BODIES must be a multiple of {2 * L2_TURNS}, "
                          f"got {FLUSH_BODIES}")
@@ -111,8 +121,7 @@ def stream_sums_words_plain(x) -> tuple[torch.Tensor, torch.Tensor]:
     n = words.numel()
     dev = words.device
     if n == 0:
-        zero = torch.zeros(F.N_BITS, dtype=torch.int64, device=dev)
-        return zero, zero.clone()
+        return torch.zeros(2 * BITS, dtype=torch.int64, device=dev)
     table = word_table(dev)
     threads = min(PLAIN_THREADS, -(-n // TURN_WORDS))
     per_turn = threads * TURN_WORDS
@@ -157,43 +166,52 @@ def stream_sums_words_plain(x) -> tuple[torch.Tensor, torch.Tensor]:
         if turns >> j & 1:                            # a carry still pending
             packed += _field_bits(pend[j], shifts) << (5 + j)
     counts += _halves_sum(packed)
-    return _pass_fail_to_streams(counts)
+    return counts
 
 
 def _pass_fail_to_streams(sums: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """int64[30] (pass bits 0-14, fail bits 0-14) -> (C[k], F[k]), each
-    (16,) with bit 15 at 0: two small device operations after a launch."""
+    (16,) with bit 15 at 0: the plain version of the epilogue's first
+    form (kind ``"words"``)."""
     both = torch.nn.functional.pad(sums.view(2, BITS), (0, 1))
     return both[0] + both[1], both[1]
 
 
-def stream_sums_words_cuda(x: torch.Tensor, blocks: int | None = None
-                           ) -> tuple[torch.Tensor, torch.Tensor]:
+def stream_sums_words_cuda(x: torch.Tensor, blocks: int | None = None,
+                           out: torch.Tensor | None = None, zero: bool = False):
     """(C[k], F[k]) through the CUDA kernel, each (16,) int64.
 
     ``x``: a contiguous uint16 (or int16 view) tensor. On a CUDA tensor
-    this launches the kernel or raises; a CPU tensor takes the plain
-    version. Any 2-byte aligned start is taken as it is. ``blocks`` as
-    for ``kernels.stream_sums_cuda`` (one wave: ``words_wave_blocks``); a
-    grid far below one wave makes one thread run many more bodies than
-    FLUSH_BODIES."""
+    this launches the kernel and the epilogue kernel, or raises; a CPU
+    tensor takes the plain version. Any 2-byte aligned start is taken as
+    it is. ``blocks`` as for ``kernels.stream_sums_cuda`` (one wave:
+    ``words_wave_blocks``); a grid far below one wave makes one thread
+    run many more bodies than FLUSH_BODIES. Given ``out``, an int64
+    accumulator on ``x``'s device, the kernel's pass and fail bit counts
+    (int64[30]) are added into it (``zero``: zeroed first, in the
+    launcher) and it is returned, with no epilogue."""
     with launch_span("words", x):
         blocks = _check_blocks(blocks)
         if check_cuda_words(x):
-            return stream_sums_words_plain(x)
-        out = torch.zeros(2 * BITS, dtype=torch.int64, device=x.device)
-        if x.numel():
-            from . import cuda_build
+            if out is None:
+                return stream_sums_words_plain(x)
+            return add_plain(out, _bit_counts_plain(x), zero)
+        acc, zero = accumulator(out, zero, 2 * BITS, x.device)
+        from . import cuda_build
 
-            lib = cuda_build.load()
-            with torch.cuda.device(x.device):
-                stream = torch.cuda.current_stream().cuda_stream
-                err = lib.lfs_stream_sums_words(x.data_ptr(), x.numel(), out.data_ptr(),
-                                                blocks, stream)
-            if err:
-                raise RuntimeError(f"stream_sums_words kernel failed: cudaError {err}")
+        lib = cuda_build.load()
+        with torch.cuda.device(x.device):
+            stream = torch.cuda.current_stream().cuda_stream
+            err = lib.lfs_stream_sums_words(x.data_ptr(), x.numel(), acc.data_ptr(),
+                                            blocks, zero, stream)
+        if err:
+            raise RuntimeError(f"stream_sums_words kernel failed: cudaError {err}")
+        if x.numel():
             LAUNCHES["words"] += 1
-        return _pass_fail_to_streams(out)
+    if out is not None:
+        return acc
+    both = epilogue_cuda(acc, "words")
+    return both[:F.N_BITS], both[F.N_BITS:]
 
 
 def words_wave_blocks(device=None) -> int:
@@ -219,6 +237,10 @@ def words_wave_words(device=None) -> int:
 
 def flagstat_cuda_words(x: torch.Tensor, n=None) -> torch.Tensor:
     """Flagstat counters of a uint16 word tensor through K6 -> (32,)
-    int64. ``n`` is the true word count for the derived pass total."""
-    total, fail = stream_sums_words_cuda(x)
-    return assemble_counters(total, fail, x.numel() if n is None else n)
+    int64, on its device (on a CUDA tensor through the epilogue kernel).
+    ``n`` is the true word count for the derived pass total."""
+    n = x.numel() if n is None else n
+    if isinstance(x, torch.Tensor) and x.device.type == "cuda":
+        acc = torch.empty(2 * BITS, dtype=torch.int64, device=x.device)
+        return epilogue_cuda(stream_sums_words_cuda(x, out=acc, zero=True), "words", n)
+    return assemble_counters(*stream_sums_words_cuda(x), n)

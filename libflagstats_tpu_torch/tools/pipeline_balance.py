@@ -56,11 +56,10 @@ def _run(path, impl, timer, serial: bool, device):
     """One streamed count -> (counters, wall seconds)."""
     orig = S._chunk_sums
 
-    def serial_sums(*args):
-        c, f = orig(*args)
-        if c.device.type == "cuda":
-            torch.cuda.synchronize(c.device)   # force completion: forbid any overlap
-        return c, f
+    def serial_sums(tally, chunk):
+        orig(tally, chunk)
+        if chunk.device.type == "cuda":
+            torch.cuda.synchronize(chunk.device)   # force completion: forbid any overlap
 
     if serial:
         S._chunk_sums = serial_sums

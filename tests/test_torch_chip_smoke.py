@@ -24,6 +24,7 @@ def test_every_phase_by_default():
     assert "4k" in chip_smoke.PHASES      # the container path
     assert "4l" in chip_smoke.PHASES      # CRAM, the container legs and na12878_run
     assert "4m" in chip_smoke.PHASES      # the last tools, perf_native, the entry points
+    assert "4o" in chip_smoke.PHASES      # the epilogue kernel
     assert chip_smoke.parse_phases([]) == list(chip_smoke.PHASES)
     assert "4s" in chip_smoke.SHAKEDOWNS and "4s" not in chip_smoke.PHASES   # only when named
     assert chip_smoke.parse_phases(["--phases", ",".join(chip_smoke.PHASES)]) == \

@@ -193,13 +193,15 @@ def test_no_column_reaches_the_count_whole(piece, monkeypatch, impl):
     real = {"cuda": K.stream_sums_cuda, "pre": K.stream_sums_pre_cuda,
             "words": ST.stream_sums_words_cuda}
     monkeypatch.setattr(K, "stream_sums_cuda",
-                        lambda x, mode="flagstat", blocks=None: seen.append(x.numel())
-                        or real["cuda"](x, mode))
+                        lambda x, mode="flagstat", blocks=None, out=None, zero=False:
+                        seen.append(x.numel()) or real["cuda"](x, mode, blocks, out, zero))
     monkeypatch.setattr(K, "stream_sums_pre_cuda",
-                        lambda t, report=False, packed=False, blocks=None:
-                        seen.append(t.shape[0] * K.GROUP_WORDS) or real["pre"](t, report, packed))
+                        lambda t, report=False, packed=False, blocks=None, out=None, zero=False:
+                        seen.append(t.shape[0] * K.GROUP_WORDS)
+                        or real["pre"](t, report, packed, blocks, out, zero))
     monkeypatch.setattr(ST, "stream_sums_words_cuda",
-                        lambda x, blocks=None: seen.append(x.numel()) or real["words"](x))
+                        lambda x, blocks=None, out=None, zero=False: seen.append(x.numel())
+                        or real["words"](x, blocks, out, zero))
     step = _step(impl)
     n = (ST.DEPTH + 2) * step + 9
     x = generate_flags(n, seed=53, full_range=True)

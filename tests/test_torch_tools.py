@@ -222,9 +222,9 @@ def test_serial_leg_equals_overlapped_leg_equals_oracle(tmp_path):
 def test_pipeline_balance_exits_1_on_wrong_counters(monkeypatch, capsys):
     right = S._chunk_sums
 
-    def wrong(impl, chunk, report):
-        c, f = right(impl, chunk, report)
-        return c + 1, f
+    def wrong(tally, chunk):
+        right(tally, chunk)
+        right(tally, chunk)        # every run counted twice
 
     monkeypatch.setattr(S, "_chunk_sums", wrong)
     assert pipeline_balance.main(["--n-words", "70000", "--device", "cpu", "--skip-native"]) == 1
