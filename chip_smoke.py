@@ -21,7 +21,10 @@ of whole frames straight into pinned slots (each impl twice with its
 SectionTimer table, and the cuda impl once more at 4Mi and 64Mi words
 a run beside the 16Mi default, and with one and two decode calls in
 flight beside the default four), then counted by the data-parallel path:
-two shards on the card, two gloo worker processes over the file, each
+on a host of two or more cards flagstat_sharded over every card (the
+column resident as one shard a card, and staged across the cards'
+rings, beside one card's walls), two shards on one card, two gloo
+worker processes over the file, each
 leg's wall a rank beside its native twin's, and a one-rank NCCL group), times each kernel against its plain version
 with CUDA events, and prints one JSON line of kernel results, the card's
 name and power limit, and last, one JSON line {"ok": true, "device":
@@ -130,6 +133,7 @@ from libflagstats_tpu_torch.ops import staging as ST
 from libflagstats_tpu_torch.ops import torch_ops as T
 from libflagstats_tpu_torch.ops import words_kernels as W
 from libflagstats_tpu_torch.ops.torch_ops import assemble_counters
+from libflagstats_tpu_torch.parallel import sharded as SH
 from libflagstats_tpu_torch.parallel.sharded import shard_bounds
 from libflagstats_tpu_torch.oracle import flagstat_numpy, generate_flags
 from libflagstats_tpu_torch import graft_entry
@@ -878,11 +882,85 @@ def run_ranks(code: str, rdv: str, args: tuple = (), timeout: int = 300) -> list
     return [(p.returncode, out, err) for p, (out, err) in zip(procs, outs)]
 
 
+@contextlib.contextmanager
+def launches_by_card():
+    """A dict card index -> K1/K3 launches while the block runs, counted
+    by a spy on the wrapper (its calls with a word on a card)."""
+    counts, real = {}, K.stream_sums_cuda
+
+    def spy(x, *args, **kwargs):
+        if x.device.type == "cuda" and x.numel():
+            counts[x.device.index] = counts.get(x.device.index, 0) + 1
+        return real(x, *args, **kwargs)
+
+    K.stream_sums_cuda = spy
+    try:
+        yield counts
+    finally:
+        K.stream_sums_cuda = real
+
+
+def drive_sharded_cards(na_words: np.ndarray, want: np.ndarray, cards: int, card: str) -> None:
+    """Phase 4h (iv), on a host with two or more cards: flagstat_sharded
+    over every card, NA12878 resident as one shard a card (the list form:
+    one K1 a card, a peer copy a card past the first, one epilogue) and
+    the host column staged across the cards' rings (a K1 a piece on each
+    card), each against the oracle with its launches per card, then the
+    walls beside one card's: the resident shards against the whole column
+    resident on card 0, the staged column against one card's staging."""
+    devs = [torch.device("cuda", i) for i in range(cards)]
+    col = torch.from_numpy(na_words.view(np.int16))
+    bounds = shard_bounds(na_words.size, cards)
+    shards = [col[a:b].to(d) for d, (a, b) in zip(devs, bounds)]
+    whole = col.to(devs[0])
+    for d in devs:
+        torch.cuda.synchronize(d)
+    for impl, report in (("cuda", False), ("cuda", True), ("cuda_words", False)):
+        before, epilogues = dict(SH.SHARDED), K.LAUNCHES["epilogue"]
+        with launches_by_card() as per_card:
+            c = L.flagstat_sharded(shards, impl=impl, report=report)
+        check_na12878(c, want, f"{cards} resident shards {impl} report={report}", report)
+        assert K.LAUNCHES["epilogue"] - epilogues == 1
+        assert SH.SHARDED["peer_copies"] - before["peer_copies"] == cards - 1
+        if impl == "cuda":
+            assert per_card == {i: 1 for i in range(cards)}, per_card
+        print(f"[{card}] main path (h-iv): flagstat_sharded(NA12878 as {cards} resident shards, "
+              f"impl={impl!r}, report={report}) = na12878_report_values(1); K1 launches by "
+              f"card {per_card}, 1 epilogue, {cards - 1} peer copies")
+    pieces = {i: pieces_of(b - a) for i, (a, b) in enumerate(bounds)}
+    with launches_by_card() as per_card:
+        c = L.flagstat_sharded(na_words, devices=devs)
+    check_na12878(c, want, f"host column staged over {cards} cards")
+    assert per_card == pieces, (per_card, pieces)
+    print(f"[{card}] main path (h-iv): flagstat_sharded(NA12878 host column, devices="
+          f"{cards} cards) = na12878_report_values(1); K1 launches (staged pieces) by card "
+          f"{per_card}")
+    walls = {"resident shards": one_shot_walls(lambda: L.flagstat_sharded(shards), 100),
+             "one card resident": one_shot_walls(lambda: L.flagstats_u16(whole), 100)}
+    for label, w in walls.items():
+        print(f"[{card}] walls (h-iv), {label}: median {statistics.median(w) * 1e3:.4f} ms, "
+              f"min {min(w) * 1e3:.4f} ms over {len(w)} calls")
+    staged_walls = walls_beside_native(lambda: L.flagstat_sharded(na_words, devices=devs),
+                                       lambda: L.flagstats_u16(na_words))
+    print(f"[{card}] walls (h-iv): host column staged over {cards} cards "
+          f"{staged_walls[0]:.4f} s, on card 0 alone {staged_walls[1]:.4f} s (least of 3, "
+          "in turns)")
+    del shards, whole
+
+
 def drive_parallel_path(na_words: np.ndarray, na_path: str, tmp: str, card: str) -> dict:
     """Phase 4h: the data-parallel path at full width. Returns the
     launches its worker processes counted."""
     seen = dict(K.LAUNCHES)
     want = L.flagstats_u16(na_words, impl="native")
+
+    cards = torch.cuda.device_count()
+    if cards >= 2:
+        drive_sharded_cards(na_words, want, cards, card)
+        seen.update(K.LAUNCHES)
+    else:
+        print(f"[{card}] main path (h-iv): one card, so flagstat_sharded over several cards "
+              "does not run; the phase runs as on one card")
 
     # (i) two shards on one card: the split, the staged pieces of both
     # shards in turn through the card's ring, and the merge

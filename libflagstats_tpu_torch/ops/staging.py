@@ -187,13 +187,13 @@ class Tally:
         self.kind = ("words" if impl == "cuda_words" else impl if impl == "pospopcnt"
                      else "flagstat_report" if report else "flagstat")
         self.card = dev.type == "cuda" and impl != "torch"
-        if impl == "torch":
-            self.acc = torch.empty(2 * F.N_BITS, dtype=torch.int64, device=dev)
-        elif self.card and scratch:
+        #: int64 sums the accumulator holds
+        self.sums = (2 * F.N_BITS if impl == "torch" else F.N_BITS if impl == "pospopcnt"
+                     else K.RAW_STREAMS[self.kind])
+        if self.card and scratch:
             self.acc = K.scratch(dev).acc
         else:
-            n = F.N_BITS if impl == "pospopcnt" else K.RAW_STREAMS[self.kind]
-            self.acc = torch.empty(n, dtype=torch.int64, device=dev)
+            self.acc = torch.empty(self.sums, dtype=torch.int64, device=dev)
         self.fresh = True   # the next piece zeroes the accumulator
 
     def add(self, piece: torch.Tensor) -> None:
@@ -209,6 +209,28 @@ class Tally:
         else:
             K.stream_sums_cuda(piece, self.kind, out=self.acc, zero=self.fresh)
         self.fresh = False
+
+    def take(self, others) -> None:
+        """Add the raw sums of ``others``, counts of the same impl and
+        mode, into this one, enqueued. Each accumulator is copied into a
+        row of one buffer on this tally's device (from another card a
+        peer copy, on that card's stream, so the copies run at once), and
+        the rows' sum is added in place: one reduction and one add however
+        many there are. Sums add, so this tally then holds one count of
+        all the columns."""
+        others = list(others)
+        for other in others:
+            if (other.impl, other.kind) != (self.impl, self.kind):
+                raise ValueError(f"cannot add a {other.impl} {other.kind} count into a "
+                                 f"{self.impl} {self.kind} one")
+        if not others:
+            return
+        self._settle()
+        rows = torch.empty((len(others), self.sums), dtype=torch.int64, device=self.device)
+        for row, other in zip(rows, others):
+            other._settle()
+            row.copy_(other.acc[:self.sums], non_blocking=True)
+        self.acc[:self.sums] += rows.sum(0)
 
     def clear(self) -> None:
         """Start the count again: the next piece zeroes the accumulator."""
@@ -268,19 +290,6 @@ class Tally:
                     raw[c[k]] = total[k] - (raw[c2[k]] if c2[k] >= 0 else 0)
         self.acc[:raw.size] = torch.from_numpy(raw)
         self.fresh = False
-
-
-def piece_sums(impl: str, piece: torch.Tensor, report: bool = False):
-    """(C[k], F[k]) of one piece lying where it is counted, each (16,)
-    int64, enqueued on the piece's device: ``"torch"`` the plain tier,
-    ``"cuda"`` K1 (K3 with ``report``), ``"cuda_words"`` K6,
-    ``"cuda_pre"`` K2 over packed plane tiles; ``"pospopcnt"`` K5's sums.
-    The kernel impls take their plain versions on a CPU tensor."""
-    if impl == "torch":
-        return stream_sums_torch(piece)
-    tally = Tally(impl, piece.device, report)
-    tally.add(piece)
-    return tally.streams()
 
 
 def stage(columns) -> None:
