@@ -182,8 +182,8 @@ NA12878_SKIP = [F.FREVERSE_OFF, F.FMREVERSE_OFF, 16 + F.FREVERSE_OFF, 16 + F.FMR
 #: data-parallel, 4i measurement, 4j tools, 4k container files, 4l CRAM
 #: files, the container legs and na12878_run, 4m the last tools,
 #: perf_native and the entry points, 4n a bad range of the framed-file
-#: leg in two ranks, 4o the epilogue kernel, 5-5e kernel times, 5f the
-#: torch_matmul pospopcnt tier
+#: leg in two ranks, 4o the epilogue kernel and the one-call count,
+#: 5-5e kernel times, 5f the torch_matmul pospopcnt tier
 PHASES = ("3", "3b", "3c", "3d", "3e", "4a", "4e", "4g", "4h", "4i", "4j", "4k", "4l", "4m",
           "4n", "4o", "5", "5b", "5c", "5d", "5e", "5f")
 #: phases that run only when named: 4s, the staging's shake-downs (the
@@ -208,6 +208,10 @@ MATMUL_CHUNKS = (1 << 20, 1 << 24)
 EPILOGUE_CAP = 300_000_007
 #: phase 4o's timed one-shot calls on the resident column, for each ending
 WALL_CALLS = 300
+#: phase 4o's host blocks of the one-call count (upstream's -D block), and
+#: the timed reports of 1,611 block calls, for each path
+ONE_CALL_BLOCK = 512_000
+BLOCK_REPORTS = 4
 WORDS_DISTRIBUTIONS = (("full-range", lambda n: generate_flags(n, seed=11, full_range=True)),
                        ("flags<4096", lambda n: generate_flags(n, seed=11, full_range=False)),
                        ("one value", lambda n: np.full(n, 99, np.uint16)))
@@ -2099,7 +2103,7 @@ def plain_epilogue_call(xd: torch.Tensor) -> np.ndarray:
     return assemble_counters(*K._sums_to_streams(sums, False), xd.numel()).cpu().numpy()
 
 
-def check_epilogue(na_words: np.ndarray, card: str) -> None:
+def check_epilogue(na_words: np.ndarray, ref: np.ndarray, card: str) -> None:
     """Phase 4o: the epilogue kernel (ops/csrc/flagstat_epilogue.cu) on
     the card. (1) It equals its plain twin on random int64 sums of every
     kind, n up to 2^33, in both forms. (2) On the NA12878 column it
@@ -2112,7 +2116,8 @@ def check_epilogue(na_words: np.ndarray, card: str) -> None:
     (TRACE_CALL, in a process of its own) holds K1 and the epilogue, and
     no pageable HtoD copy, index kernel or index_put_. (4) The host
     walls of resident calls beside the former ending
-    (plain_epilogue_call), in turns."""
+    (plain_epilogue_call), in turns. ``ref``: the oracle's counters of
+    ``na_words``, int64."""
     gen = np.random.default_rng(20)
     for kind in K.EPILOGUE_KINDS:
         for _ in range(4):
@@ -2124,7 +2129,6 @@ def check_epilogue(na_words: np.ndarray, card: str) -> None:
     print("epilogue (1): kernel = plain twin on random sums below 2^33, every kind, both forms")
 
     n = na_words.size
-    ref = oracle_counts(na_words).astype(np.int64)
     idx = list(F.REPORT_COUNTERS)
     xd = torch.from_numpy(na_words).cuda()
     acc = torch.empty(2 * W.BITS, dtype=torch.int64, device="cuda")
@@ -2185,6 +2189,63 @@ def check_epilogue(na_words: np.ndarray, card: str) -> None:
         print(f"[{card}] epilogue (4): resident NA12878 call, {label}: median "
               f"{statistics.median(w) * 1e3:.4f} ms, p90 {q[-1] * 1e3:.4f} ms over {len(w)} "
               f"calls (host clock, in turns)")
+
+
+def check_one_call(na_words: np.ndarray, ref: np.ndarray, card: str) -> None:
+    """Phase 4o (5): the one-call count (``dispatch._one_call``,
+    ``kernels.flagstat_count``) on NA12878, resident (one call) and in
+    1,611 host blocks of ONE_CALL_BLOCK words (one accumulating call a
+    block): the oracle's counters, one one-call count, one K1 and one
+    epilogue a call. Then the host walls of both beside the general path
+    they replace (``get_function``'s count: a tally, the wrappers, the
+    ring's side stream), in turns. ``ref`` as for check_epilogue."""
+    n = na_words.size
+    xd = torch.from_numpy(na_words).cuda()
+    blocks = [na_words[a:a + ONE_CALL_BLOCK] for a in range(0, n, ONE_CALL_BLOCK)]
+
+    def in_blocks(count):
+        acc = np.zeros(F.N_COUNTERS, dtype=np.uint64)
+        for b in blocks:
+            count(b, acc)
+        return acc
+
+    def general(b, acc):
+        acc += D.get_function(len(b), "cuda")(b)
+
+    paths = {
+        "resident, one call": (lambda: L.flagstats_u16(xd), 1),
+        "resident, general path": (lambda: D.get_function(n, "cuda")(xd), 0),
+        "host blocks, one call": (lambda: in_blocks(
+            lambda b, acc: L.flagstats_u16(b, out=acc)), len(blocks)),
+        "host blocks, general path": (lambda: in_blocks(general), 0),
+    }
+    for label, (fn, calls) in paths.items():
+        before = (D.ONE_CALL["calls"], dict(K.LAUNCHES))
+        got = fn().astype(np.int64)
+        assert (got == ref).all(), (label, got, ref)
+        ran = {m: K.LAUNCHES[m] - before[1][m] for m in K.LAUNCHES}
+        counts = calls or (1 if label.startswith("resident") else len(blocks))
+        assert D.ONE_CALL["calls"] - before[0] == calls, (label, calls)
+        assert ran["flagstat"] == ran["epilogue"] == counts, (label, ran)
+    print(f"one call (5): NA12878 resident and in {len(blocks)} host blocks of "
+          f"{ONE_CALL_BLOCK} words = oracle, one K1 and one epilogue a count, both paths")
+
+    walls = {label: [] for label in paths}
+    for _ in range(2):
+        for label, (fn, _) in paths.items():
+            if label.startswith("resident"):
+                walls[label] += one_shot_walls(fn, WALL_CALLS // 2)
+                continue
+            for _ in range(BLOCK_REPORTS // 2):   # each path warm from the checks
+                t0 = time.perf_counter()
+                fn()
+                walls[label].append(time.perf_counter() - t0)
+    for label, w in walls.items():
+        per = f"{statistics.median(w) / len(blocks) * 1e6:.1f} us a block call, " \
+            if label.startswith("host") else ""
+        print(f"[{card}] one call (5): NA12878 {label}: median "
+              f"{statistics.median(w) * 1e3:.4f} ms a report, {per}over {len(w)} "
+              f"reports (host clock, in turns)")
 
 
 @contextlib.contextmanager
@@ -2362,8 +2423,10 @@ def main(argv=None) -> int:
 
         if "4o" in run:
             zero_launches()
-            with phase("4o, the epilogue kernel"):
-                check_epilogue(na12878(), card)
+            with phase("4o, the epilogue kernel and the one-call count"):
+                ref = oracle_counts(na12878()).astype(np.int64)
+                check_epilogue(na12878(), ref, card)
+                check_one_call(na12878(), ref, card)
             print(f"epilogue-path launches (phase 4o): {dict(K.LAUNCHES)}")
             assert K.LAUNCHES["epilogue"] > 0
 

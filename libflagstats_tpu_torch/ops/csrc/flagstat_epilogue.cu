@@ -31,13 +31,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-// One mode's map from the accumulator to (C[k], F[k]); -1 reads 0.
-struct EpilogueMap {
-  int8_t c[16];
-  int8_t c2[16];
-  int8_t f[16];
-  int8_t qc;  // the QC-fail bit (flags.FQCFAIL_OFF)
-};
+#include "flagstat_epilogue.cuh"
 
 namespace {
 

@@ -56,7 +56,10 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <atomic>
+
 #include "flagstat_common.cuh"
+#include "flagstat_epilogue.cuh"
 
 namespace {
 
@@ -145,6 +148,22 @@ cudaError_t wave_blocks(int* blocks) {
   return lfs::wave_blocks(stream_sums_kernel<MODE>, kThreads, blocks);
 }
 
+// One launch over the n > 0 words at x, its grid at most `cap` blocks.
+template <int MODE>
+cudaError_t enqueue(const void* x, int64_t n, unsigned long long* out, int64_t cap,
+                    cudaStream_t stream) {
+  const uintptr_t addr = reinterpret_cast<uintptr_t>(x);
+  const uintptr_t aligned = addr & ~uintptr_t(15);
+  const int64_t skip = (int64_t)(addr - aligned) / 2;
+  const int64_t end = skip + n;
+  const int64_t tiles = (end + kTileWords - 1) / kTileWords;
+  const int64_t want = (tiles + kWarps - 1) / kWarps;
+  const int grid = (int)(want < cap ? want : cap);
+  stream_sums_kernel<MODE><<<grid, kThreads, 0, stream>>>(
+      reinterpret_cast<const uint16_t*>(aligned), skip, end, tiles, out);
+  return cudaGetLastError();
+}
+
 template <int MODE>
 cudaError_t launch(const void* x, int64_t n, unsigned long long* out, int blocks, int zero,
                    cudaStream_t stream) {
@@ -153,21 +172,66 @@ cudaError_t launch(const void* x, int64_t n, unsigned long long* out, int blocks
     if (z != cudaSuccess) return z;
   }
   if (n <= 0) return cudaSuccess;  // a 0-block launch is an error
-  const uintptr_t addr = reinterpret_cast<uintptr_t>(x);
-  const uintptr_t aligned = addr & ~uintptr_t(15);
-  const int64_t skip = (int64_t)(addr - aligned) / 2;
-  const int64_t end = skip + n;
-  const int64_t tiles = (end + kTileWords - 1) / kTileWords;
   int wave = 0;
   cudaError_t e = wave_blocks<MODE>(&wave);
   if (e != cudaSuccess) return e;
   if (wave < 1) return cudaErrorInvalidConfiguration;
-  const int64_t want = (tiles + kWarps - 1) / kWarps;
-  const int64_t cap = blocks > 0 ? blocks : wave;
-  const int grid = (int)(want < cap ? want : cap);
-  stream_sums_kernel<MODE><<<grid, kThreads, 0, stream>>>(
-      reinterpret_cast<const uint16_t*>(aligned), skip, end, tiles, out);
-  return cudaGetLastError();
+  return enqueue<MODE>(x, n, out, blocks > 0 ? blocks : wave, stream);
+}
+
+// One wave of the kFlagstat and kReport kernels on each device ordinal,
+// queried at its first use there and kept: the one-call count's grid.
+// 0: not yet known. Concurrent first uses store the same value.
+constexpr int kMaxDevices = 64;
+std::atomic<int> g_wave[kMaxDevices][2];
+
+// The cached wave of `mode` on `device`, the current device.
+template <int MODE>
+cudaError_t cached_wave(int device, int* wave) {
+  if (device < 0 || device >= kMaxDevices) return cudaErrorInvalidDevice;
+  std::atomic<int>& slot = g_wave[device][MODE];
+  int w = slot.load(std::memory_order_relaxed);
+  if (w == 0) {
+    const cudaError_t e = wave_blocks<MODE>(&w);
+    if (e != cudaSuccess) return e;
+    if (w < 1) return cudaErrorInvalidConfiguration;
+    slot.store(w, std::memory_order_relaxed);
+  }
+  *wave = w;
+  return cudaSuccess;
+}
+
+// Makes `device` current for a scope and restores the caller's after.
+struct DeviceScope {
+  int prev = -1;
+  cudaError_t status;
+  explicit DeviceScope(int device) {
+    status = cudaGetDevice(&prev);
+    if (status == cudaSuccess && prev != device) status = cudaSetDevice(device);
+  }
+  ~DeviceScope() {
+    int now = -1;
+    if (prev >= 0 && cudaGetDevice(&now) == cudaSuccess && now != prev) cudaSetDevice(prev);
+  }
+};
+
+// lfs_flagstat_count's steps on the current device (see there).
+template <int MODE>
+cudaError_t count(int device, const void* src, int64_t n, void* words, void* acc,
+                  void* out, const EpilogueMap& map, void* host, void* consumed, void* done,
+                  cudaStream_t stream) {
+  auto* sums = static_cast<unsigned long long*>(acc);
+  int wave = 0;
+  cudaError_t e = n > 0 ? cached_wave<MODE>(device, &wave) : cudaSuccess;
+  if (e == cudaSuccess && src && n > 0) {
+    if (consumed) e = cudaStreamWaitEvent(stream, static_cast<cudaEvent_t>(consumed), 0);
+    if (e == cudaSuccess)
+      e = cudaMemcpyAsync(words, src, n * sizeof(uint16_t), cudaMemcpyHostToDevice, stream);
+  }
+  if (e == cudaSuccess) e = cudaMemsetAsync(sums, 0, Streams<MODE>::n * sizeof(*sums), stream);
+  if (e == cudaSuccess && n > 0) e = enqueue<MODE>(words, n, sums, wave, stream);
+  if (e != cudaSuccess) return e;
+  return static_cast<cudaError_t>(lfs_epilogue(acc, out, map, n, 1, host, done, stream));
 }
 
 }  // namespace
@@ -206,5 +270,46 @@ int lfs_wave_blocks(int mode, int* blocks) {
 // Words one warp tile covers; a wave of `blocks` blocks covers
 // blocks * lfs_words_per_block() words before its grid-stride loop turns.
 int lfs_words_per_block(void) { return kWarps * kTileWords; }
+
+// One count of the n uint16 words of one piece, and its readback, all
+// enqueued on `stream` of `device` (made current for the call) by one
+// call, so that the host's per-call work is this call: for a host
+// source (src not NULL, pinned), the copy of its n words into `words`
+// on the device, after `stream` waits for the event `consumed` when it
+// is not NULL (the last reader of `words`); a cudaMemsetAsync of the
+// accumulator `acc`; one launch of K1 (mode kFlagstat) or K3 (kReport)
+// over `words`, adding into `acc`, its grid one wave at most, taken from
+// a cache per device and mode filled at first use; the epilogue into
+// `out` in its counters form with n; the copy of `out` into `host`
+// (pinned int64[32]); and the record of the event `done`. Nothing
+// waits: the caller synchronises on `done`. n = 0 copies and launches
+// no count. `words` must be 2-byte aligned. Returns a cudaError_t.
+int lfs_flagstat_count(int device, int mode, const void* src, long long n, void* words,
+                       void* acc, void* out, EpilogueMap map, void* host, void* consumed,
+                       void* done, void* stream) {
+  DeviceScope scope(device);
+  if (scope.status != cudaSuccess) return scope.status;
+  auto s = static_cast<cudaStream_t>(stream);
+  switch (mode) {
+    case kFlagstat:
+      return count<kFlagstat>(device, src, n, words, acc, out, map, host, consumed, done, s);
+    case kReport:
+      return count<kReport>(device, src, n, words, acc, out, map, host, consumed, done, s);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+// The wave lfs_flagstat_count gives `mode` (kFlagstat or kReport) on
+// `device`, filling the cache at its first use there. Returns a
+// cudaError_t.
+int lfs_cached_wave_blocks(int device, int mode, int* blocks) {
+  DeviceScope scope(device);
+  if (scope.status != cudaSuccess) return scope.status;
+  switch (mode) {
+    case kFlagstat: return cached_wave<kFlagstat>(device, blocks);
+    case kReport: return cached_wave<kReport>(device, blocks);
+    default: return cudaErrorInvalidValue;
+  }
+}
 
 }  // extern "C"

@@ -31,7 +31,7 @@ _lib = None
 
 
 class EpilogueMap(ctypes.Structure):
-    """``EpilogueMap`` of csrc/flagstat_epilogue.cu, passed by value: for
+    """``EpilogueMap`` of csrc/flagstat_epilogue.cuh, passed by value: for
     each FLAG bit k the accumulator's entries of C[k] (``c``, plus ``c2``)
     and of F[k] (``f``), -1 for none; ``qc`` the QC-fail bit."""
     _fields_ = [("c", ctypes.c_int8 * 16), ("c2", ctypes.c_int8 * 16),
@@ -128,7 +128,10 @@ def load() -> ctypes.CDLL:
                            ("lfs_stream_sums_raw", [vp, i64, i32, vp, vp]),
                            ("lfs_fold_xor", [vp, i64, i32, u32, vp, vp]),
                            ("lfs_setop_count_cuda", [i32, vp, vp, i64, vp, vp]),
-                           ("lfs_epilogue", [vp, vp, EpilogueMap, i64, i32, vp, vp, vp])):
+                           ("lfs_epilogue", [vp, vp, EpilogueMap, i64, i32, vp, vp, vp]),
+                           ("lfs_flagstat_count", [i32, i32, vp, i64, vp, vp, vp, EpilogueMap,
+                                                   vp, vp, vp, vp]),
+                           ("lfs_cached_wave_blocks", [i32, i32, ctypes.POINTER(ctypes.c_int)])):
             getattr(lib, name).argtypes = args
             getattr(lib, name).restype = ctypes.c_int
         _lib = lib

@@ -37,7 +37,11 @@ the same loop runs the plain versions). Words already on a card are
 counted where they lie; ``"torch"`` and ``"torch_matmul"`` copy a column
 whole. On a card a kernel tier's count ends in the epilogue kernel,
 which writes the 32 counters, a copy of them into a pinned host buffer
-and one wait (``staging.Tally``).
+and one wait (``staging.Tally``). A ``"cuda"`` or ``"cuda_report"``
+count that is one piece (words on a card within DEVICE_WORD_CAP, or a
+host column within one staged piece) is enqueued whole by one native
+call and waited on once (``_one_call``); any other count takes the
+general path above.
 
 ``impl="native"`` (the host AVX2 kernels of the native library),
 ``impl="cuda_pre"`` (host packed bit transpose, then the plane-tile
@@ -53,7 +57,9 @@ import torch
 from .. import flags as F
 from ..bench import profiling
 from ..oracle import flagstat_numpy
+from . import kernels as K
 from . import native_host
+from . import staging as ST
 from .kernels import host_counts, pospopcnt_u16_cuda
 from .staging import Tally, stage, staged_sums
 from .torch_ops import as_words, flagstat_torch, pospopcnt_u16_matmul, pospopcnt_u16_torch
@@ -95,6 +101,9 @@ MATMUL_CHUNK = 1 << 22
 #: one call's device buffer and keeps every per-thread 32-bit tally of
 #: the kernel far from wrapping. Module-level so tests can monkeypatch it.
 DEVICE_WORD_CAP = 0x7FFFFFFF
+
+#: ``flagstats_u16`` calls counted in one native call (``_one_call``)
+ONE_CALL = {"calls": 0}
 
 #: below this many words a call that asked for the CPU counts with
 #: ``"numpy"``, from it with ``"torch"`` (0: torch at every size until a
@@ -225,7 +234,7 @@ def _validate_u16(array):
     """The words of ``array`` as a flat uint16 numpy array, or, for a
     tensor, as a flat contiguous int16 view on its own device."""
     if isinstance(array, torch.Tensor):
-        return as_words(array.contiguous())
+        return as_words(array if array.is_contiguous() else array.contiguous())
     arr = np.asarray(array)
     if arr.dtype != np.uint16:
         # allow lossless integer input; reject anything that would be a
@@ -240,14 +249,52 @@ def _validate_u16(array):
     return np.ascontiguousarray(arr).ravel()
 
 
+def _held(words) -> torch.device | None:
+    """The CUDA device validated ``words`` lie on, or None."""
+    if isinstance(words, torch.Tensor):
+        dev = words.device
+        if dev.type == "cuda":
+            return dev
+    return None
+
+
 def _where(words, device):
     """The device asked for: ``device``, or that of words already on a
     CUDA device. Words on the CPU are no request for the CPU."""
+    return device if device is not None else _held(words)
+
+
+def _card(device) -> torch.device | None:
+    """The CUDA device, with its index, that ``device`` names (None: the
+    current one), or None when it names none or no card is present."""
     if device is not None:
-        return device
-    if isinstance(words, torch.Tensor) and words.device.type == "cuda":
-        return words.device
-    return None
+        device = torch.device(device)
+        if device.type != "cuda":
+            return None
+    if not torch.cuda.is_available():
+        return None
+    if device is None or device.index is None:
+        return torch.device("cuda", torch.cuda.current_device())
+    return device
+
+
+def _one_call(n: int, held, impl: str, device) -> torch.device | None:
+    """The CUDA device on which a count of ``n`` words is one native
+    call, or None for the general path. It is one call when the impl is
+    ``"cuda"`` or ``"cuda_report"`` and the count is one piece: words
+    lying on the card ``held`` (the one named, if any), at most
+    DEVICE_WORD_CAP of them; or a host column (``held`` None: numpy or a
+    CPU tensor) of at most STAGE_WORDS words (and DEVICE_WORD_CAP) for a
+    card."""
+    if impl != "cuda" and impl != "cuda_report":
+        return None
+    if held is not None:
+        if n > DEVICE_WORD_CAP or (device is not None and _card(device) != held):
+            return None
+        return held
+    if n > min(ST.STAGE_WORDS, DEVICE_WORD_CAP):
+        return None
+    return _card(device)
 
 
 def flagstats_u16(array, out=None, impl: str | None = None, device=None) -> np.ndarray:
@@ -257,15 +304,31 @@ def flagstats_u16(array, out=None, impl: str | None = None, device=None) -> np.n
     view). Accumulates into ``out`` when given (reference: FLAGSTATS_u16,
     libflagstats.h:3025). ``device`` picks where a device tier computes.
     Streams past DEVICE_WORD_CAP are split into accumulating sub-calls,
-    each with its own true length for the derived pass total. Span
+    each with its own true length for the derived pass total. A count of
+    one piece on a card (``_one_call``) is one native call
+    (``kernels.flagstat_count``; a host column through a ring slot,
+    ``staging.count_piece``), counted in ``ONE_CALL``. Span
     ``lfs.flagstats_u16``, args words, impl and held (``card`` for words
     on a CUDA device, else ``host``)."""
     with profiling.span("lfs.flagstats_u16") as call:
         words = _validate_u16(array)
+        n = len(words)
+        held = _held(words)
         if impl is None:
-            impl = auto_impl(len(words), _where(words, device))
-        call.note(words=len(words), impl=impl, held="card" if isinstance(words, torch.Tensor)
-                  and words.device.type == "cuda" else "host")
+            impl = auto_impl(n, held if device is None else device)
+        call.note(words=n, impl=impl, held="host" if held is None else "card")
+        card = _one_call(n, held, impl, device)
+        if card is not None:
+            ONE_CALL["calls"] += 1
+            mode = "flagstat_report" if impl == "cuda_report" else "flagstat"
+            if held is not None:
+                counts = K.flagstat_count(card, mode, words.data_ptr(), n)
+            else:
+                counts = ST.count_piece(as_words(words), card, mode)
+            if out is None:
+                return counts
+            out += counts
+            return out
         fn = get_function(len(words), impl, device)
         acc = np.zeros(F.N_COUNTERS, dtype=np.uint64) if out is None else out
         host_tier = impl in ("numpy", "native")

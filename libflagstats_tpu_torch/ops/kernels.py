@@ -31,6 +31,12 @@ column's pieces add up on the card with no torch op between launches.
   pinned buffer with one wait. ``epilogue_plain`` applies the same map in
   torch: the kernel's twin. On a CPU tensor the paths keep the plain
   versions, ``_sums_to_streams`` and ``torch_ops.assemble_counters``.
+* ``flagstat_count(dev, mode, words, n)`` is a whole one-piece count
+  and its readback in one native call (``lfs_flagstat_count``, in
+  ops/csrc/flagstat_kernels.cu): the copy of a pinned host piece, the
+  memset, K1 or K3 on a grid cached per device, the epilogue and the
+  pinned copy, then one wait. ``ops/dispatch.py`` takes it for a count
+  that is one piece.
 """
 from __future__ import annotations
 
@@ -595,6 +601,9 @@ class _Scratch:
         self.host_np = self.host.numpy()
         self.done = torch.cuda.Event()
         self.done.record(torch.cuda.current_stream(dev))   # made on dev
+        #: the four buffers' addresses as ``flagstat_count`` passes them
+        self.ptrs = (self.acc.data_ptr(), self.out.data_ptr(), self.host.data_ptr(),
+                     self.done.cuda_event)
 
 
 _LOCAL = threading.local()
@@ -622,6 +631,60 @@ def counters_cuda(acc: torch.Tensor, kind: str, n, timer=None) -> np.ndarray:
     with profiling.span("lfs.readback", timer, "final_sync"):
         s.done.synchronize()
         return s.host_np.astype(np.uint64)
+
+
+def raw_stream(dev: torch.device) -> int:
+    """The handle of ``dev``'s current CUDA stream, taken at each call (a
+    caller's ``torch.cuda.stream(...)`` holds), with no Stream object
+    made."""
+    return torch._C._cuda_getCurrentRawStream(dev.index)
+
+
+def flagstat_count(dev: torch.device, mode: str, words: int, n: int, src: int | None = None,
+                   consumed=None) -> np.ndarray:
+    """The 32 counters of one piece of ``n`` words, counted on the CUDA
+    device ``dev`` and read back -> (32,) uint64: one native call
+    (``lfs_flagstat_count``) enqueues, on ``dev``'s current stream, the
+    copy of a host source, the accumulator's memset, K1 (``mode``
+    ``"flagstat"``; K3 for ``"flagstat_report"``) over ``words``, the
+    epilogue, the copy of the counters into this thread's pinned buffer
+    and its event; then one wait. ``words``: the address of the words on
+    ``dev``, 2-byte aligned; ``src``: that of a pinned host piece to copy
+    there first (None: the words lie there already), after the stream
+    waits for the event ``consumed`` (the last reader of ``words``; None:
+    none). Spans ``lfs.launch`` (the enqueue; none for n = 0) and
+    ``lfs.readback`` (the wait). Counts one launch of ``mode`` (none for
+    n = 0) and one of the epilogue in ``LAUNCHES``."""
+    s = scratch(dev)
+    acc, out, host, done = s.ptrs
+    from . import cuda_build
+
+    with profiling.span("lfs.launch", mode=mode, words=n) if n else profiling.NOOP:
+        err = cuda_build.load().lfs_flagstat_count(
+            dev.index, _MODE_ID[mode], src, n, words, acc, out, _map_arg(mode), host,
+            None if consumed is None else consumed.cuda_event, done, raw_stream(dev))
+    if err:
+        raise RuntimeError(f"one-call count ({mode}) failed: cudaError {err}")
+    if n:
+        LAUNCHES[mode] += 1
+    LAUNCHES["epilogue"] += 1
+    with profiling.span("lfs.readback"):
+        s.done.synchronize()
+        return s.host_np.astype(np.uint64)
+
+
+def cached_wave_blocks(mode: str, dev: torch.device) -> int:
+    """The grid ``flagstat_count`` gives ``mode`` (``"flagstat"`` or
+    ``"flagstat_report"``) on the CUDA device ``dev``: one wave, queried
+    at its first use there and kept; equal to ``wave_blocks``."""
+    from . import cuda_build
+
+    blocks = ctypes.c_int(0)
+    err = cuda_build.load().lfs_cached_wave_blocks(dev.index, _MODE_ID[mode],
+                                                   ctypes.byref(blocks))
+    if err:
+        raise RuntimeError(f"occupancy query failed: cudaError {err}")
+    return blocks.value
 
 
 def host_counts(t: torch.Tensor, timer=None) -> np.ndarray:

@@ -20,6 +20,8 @@ it and kept for the process (``ring``). On the CPU the slots are plain
 host memory and each piece is counted in place by the kernels' plain
 versions, through the same loop. ``staged_sums`` returns each column's
 (C[k], F[k]); the one-shot entry points read a tally's 32 counters.
+``count_piece`` counts a host column of one piece in one native call
+through a slot of the same ring.
 """
 from __future__ import annotations
 
@@ -329,6 +331,33 @@ def stage(columns) -> None:
             r.release(slot)
             STAGED["pieces"] += 1
         STAGED["columns"] += len(columns)
+
+
+def count_piece(words: torch.Tensor, dev: torch.device, mode: str) -> np.ndarray:
+    """The 32 counters of a host column of at most STAGE_WORDS words (a
+    1-D int16 tensor on the CPU), counted on the CUDA device ``dev`` in
+    one native call (``kernels.flagstat_count``, ``mode`` ``"flagstat"``
+    or ``"flagstat_report"``) -> (32,) uint64. The column is copied into
+    the next slot of ``dev``'s ring once the copy that last read it has
+    completed (``_Ring.acquire``; span ``lfs.stage.copy_in``); the call
+    copies the slot to its device twin behind the twin's last reader and
+    counts it there. The lock is held until the call's wait returns, and
+    the wait covers the copy and the count: the slot and its twin are
+    then free. Counts one column and, unless it is empty, one piece in
+    ``STAGED``."""
+    n = words.numel()
+    with _LOCK:
+        r = ring(dev)
+        slot = r.acquire()
+        host, twin = r.host[slot], r.dev[slot]
+        if n:
+            _copy_in(host[:n], words)
+        counts = K.flagstat_count(dev, mode, twin.data_ptr(), n, host.data_ptr(),
+                                  r.consumed[slot])
+        r.copied[slot] = r.consumed[slot] = None
+        STAGED["columns"] += 1
+        STAGED["pieces"] += bool(n)
+    return counts
 
 
 def staged_sums(columns, impl: str, report: bool = False) -> list:

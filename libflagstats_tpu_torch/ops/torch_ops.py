@@ -47,7 +47,7 @@ def as_words(x) -> torch.Tensor:
         x = x.view(torch.int16)
     if x.dtype != torch.int16:
         raise ValueError(f"expected uint16 or an int16 view, got {x.dtype}")
-    return x.reshape(-1)
+    return x if x.dim() == 1 else x.reshape(-1)
 
 
 def _pack_lanes(x: torch.Tensor) -> torch.Tensor:
