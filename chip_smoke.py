@@ -327,7 +327,9 @@ def check_host_library(build_seconds: float, readers_seconds: float,
 
 def check_pre_kernel(max_err: dict) -> None:
     """Phase 3b: K2 = plain = host oracle, exactly, in every layout."""
-    wave = max(K.pre_wave_groups(r, p) for _, r, p in PRE_LAYOUTS)
+    wave = max(K.wave_blocks("pre_report" if r else "pre", None,
+                             len(K.packed_rows_for(r)) if p else K.REGS)
+               for _, r, p in PRE_LAYOUTS)
     counts = [0, 1, 2, 7, 8, 9, 129, wave + 1]
     kinds = ["flags<4096", "full16bit", "all 0xFFFF", "all 0x0FFF", "all zero"]
     print(f"K2: one wave of blocks covers {wave} groups; largest count {counts[-1]}")
@@ -373,7 +375,7 @@ def check_words_kernel(max_err: dict) -> None:
     lib = cuda_build.load()
     assert lib.lfs_words_flush_bodies() == W.FLUSH_BODIES
     assert lib.lfs_words_block_words() == 256 * W.TURN_WORDS
-    wave = W.words_wave_words()
+    wave = K.wave_words("words")
     sizes = [0, 1, 31, 32, 33, 65535, 65536, 65537, 2 * wave + 12345]
     kinds = ["flags<4096", "full16bit", "all 0xFFFF", "all 0x0FFF", "all zero"]
     print(f"K6: one wave of blocks covers {wave} words; largest size {sizes[-1]}")
@@ -1807,14 +1809,14 @@ def time_words_kernel(na_words: np.ndarray, card: str) -> dict:
     out = torch.zeros(2 * W.BITS, dtype=torch.int64, device="cuda")
 
     def alone(x):
-        stream = torch.cuda.current_stream().cuda_stream
-        assert lib.lfs_stream_sums_words(x.data_ptr(), x.numel(), out.data_ptr(), 0, 0,
+        dev, stream = x.device.index, torch.cuda.current_stream().cuda_stream
+        assert lib.lfs_stream_sums_words(dev, x.data_ptr(), x.numel(), out.data_ptr(), 0, 0,
                                          stream) == 0
-        return median_ms(lambda: lib.lfs_stream_sums_words(x.data_ptr(), x.numel(),
+        return median_ms(lambda: lib.lfs_stream_sums_words(dev, x.data_ptr(), x.numel(),
                                                            out.data_ptr(), 0, 0, stream), 7, 10)
 
     sms = torch.cuda.get_device_properties(0).multi_processor_count
-    wave = W.words_wave_blocks()
+    wave = K.wave_blocks("words")
     print(f"[{card}] K6: {wave} blocks a wave = {wave / sms:g} per SM; ptxas: "
           f"{ptxas_usage(WORDS_SOURCE)}")
     shapes = [(f"64Mi {name}", make(WORDS_64MI)) for name, make in WORDS_DISTRIBUTIONS]
@@ -1834,7 +1836,7 @@ def time_words_kernel(na_words: np.ndarray, card: str) -> dict:
               f"(bytes; kernel at {bound / ms:.3f} of it); K1 flagstat {k1_ms:.4f} ms, K4 "
               f"read_xor {k4_ms:.4f} ms (K6 = {ms / k4_ms:.3f}x K4)")
         del x
-    n = W.words_wave_words()
+    n = K.wave_words("words")
     x = torch.from_numpy(generate_flags(n, seed=17, full_range=True)).cuda()
     ms = median_ms(lambda: W.stream_sums_words_cuda(x), 7, 10)
     alone_ms = alone(x)
@@ -2138,7 +2140,8 @@ def check_epilogue(na_words: np.ndarray, ref: np.ndarray, card: str) -> None:
             ("flagstat_report", K.stream_sums_cuda(xd, "flagstat_report"),
              lambda s: K._sums_to_streams(s, True)),
             ("words", W.stream_sums_words_cuda(xd, out=acc, zero=True),
-             W._pass_fail_to_streams)):
+             lambda s: tuple(torch.nn.functional.pad(t, (0, 1))
+                             for t in (s[:W.BITS] + s[W.BITS:], s[W.BITS:])))):
         want = assemble_counters(*streams(raw), n)
         got = K.epilogue_cuda(raw, kind, n)
         assert torch.equal(got, want), (kind, got, want)

@@ -1,14 +1,20 @@
-// Shared by the bit-sliced kernels for NVIDIA Hopper (sm_90a):
+// Shared by the kernels for NVIDIA Hopper (sm_90a): the bit-sliced
 // flagstat_kernels.cu (raw uint16 words, in-register transpose),
 // flagstat_pre_kernels.cu (host-pretransposed plane tiles) and the
-// measurement probes of flagstat_probe_kernels.cu. The stream set of
+// measurement probes of flagstat_probe_kernels.cu, and the launchers of
+// flagstat_words_kernels.cu, setalgebra_kernels.cu and
+// flagstat_epilogue.cu. The stream set of
 // each mode, the plane-space flagstat transform, the count with one
 // __popc per counted plane, the block's flush of per-thread tallies, its
-// xor reduction and the one-wave occupancy query live here once.
+// xor reduction, and every launcher's grid cache and device scope live
+// here once.
 #pragma once
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+#include <string.h>
+
+#include <atomic>
 
 namespace lfs {
 
@@ -122,18 +128,98 @@ __device__ __forceinline__ void flush_xor(uint32_t d, unsigned int* out) {
   }
 }
 
-// The most blocks of `kernel`, launched with `threads` threads and no
-// dynamic shared memory, resident at once on the current device: one
-// wave (SMs times resident blocks per SM).
-template <typename Kernel>
-cudaError_t wave_blocks(Kernel kernel, int threads, int* blocks) {
-  int dev = 0, sms = 0, per_sm = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (e == cudaSuccess)
-    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, 0);
-  *blocks = sms * per_sm;
-  return e;
+// ---- launching: one grid cache, the device made current ----
+
+// Makes `device` current for a scope and restores the caller's after.
+// Every extern "C" launcher opens one, so a launch goes to the device it
+// names whatever device the calling thread has current.
+struct DeviceScope {
+  int prev = -1;
+  cudaError_t status;
+  explicit DeviceScope(int device) {
+    status = cudaGetDevice(&prev);
+    if (status == cudaSuccess && prev != device) status = cudaSetDevice(device);
+  }
+  ~DeviceScope() {
+    int now = -1;
+    if (prev >= 0 && cudaGetDevice(&now) == cudaSuccess && now != prev) cudaSetDevice(prev);
+  }
+};
+
+constexpr int kMaxDevices = 64;
+
+// One kernel's entry in the grid cache: the name Python gives it (a key
+// of kernels.LAUNCHES) and its variant (K2's plane rows, K9's op; 0 for
+// the others), its function and block size, and one wave of it on each
+// device ordinal (SMs times resident blocks per SM, no dynamic shared
+// memory), 0 until its first use there. Each source file enrolls its
+// kernels' entries as the library loads.
+struct Grid {
+  const char* key;
+  int variant;
+  const void* kernel;
+  int threads;
+  std::atomic<int> wave[kMaxDevices];
+  Grid* next;
+};
+
+// The cache: every enrolled entry, linked.
+inline Grid*& grids() {
+  static Grid* head = nullptr;
+  return head;
+}
+
+// Links a file's entries into the cache; true, to initialise a constant.
+template <size_t N>
+bool enroll(Grid (&entries)[N]) {
+  for (Grid& g : entries) {
+    g.next = grids();
+    grids() = &g;
+  }
+  return true;
+}
+
+// The entry of (key, variant), or nullptr.
+inline Grid* find_grid(const char* key, int variant) {
+  for (Grid* g = grids(); g; g = g->next)
+    if (g->variant == variant && strcmp(g->key, key) == 0) return g;
+  return nullptr;
+}
+
+// One wave of `g`'s kernel on `device`, which the caller made current:
+// the occupancy is queried at its first use there and kept. Concurrent
+// first uses store the same value.
+inline cudaError_t wave_blocks(Grid& g, int device, int* blocks) {
+  if (device < 0 || device >= kMaxDevices) return cudaErrorInvalidDevice;
+  int w = g.wave[device].load(std::memory_order_relaxed);
+  if (w == 0) {
+    int sms = 0, per_sm = 0;
+    cudaError_t e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+    if (e == cudaSuccess)
+      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, g.kernel, g.threads, 0);
+    if (e != cudaSuccess) return e;
+    w = sms * per_sm;
+    if (w < 1) return cudaErrorInvalidConfiguration;
+    g.wave[device].store(w, std::memory_order_relaxed);
+  }
+  *blocks = w;
+  return cudaSuccess;
+}
+
+// One launch of `kernel`, the function of `g`, on `stream` of `device`
+// (the current device) with `want` blocks of work: at most `cap` blocks
+// when cap > 0 (a sweep's knob), else at most one wave; at least one
+// block. Returns a cudaError_t.
+template <typename... Params, typename... Args>
+cudaError_t enqueue(Grid& g, int device, int64_t want, int cap, cudaStream_t stream,
+                    void (*kernel)(Params...), Args... args) {
+  if (cap <= 0) {
+    const cudaError_t e = wave_blocks(g, device, &cap);
+    if (e != cudaSuccess) return e;
+  }
+  const int grid = (int)(want < 1 ? 1 : want < cap ? want : cap);
+  kernel<<<grid, g.threads, 0, stream>>>(args...);
+  return cudaGetLastError();
 }
 
 }  // namespace lfs

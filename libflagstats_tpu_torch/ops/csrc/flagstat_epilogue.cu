@@ -31,6 +31,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "flagstat_common.cuh"
 #include "flagstat_epilogue.cuh"
 
 namespace {
@@ -57,13 +58,16 @@ __global__ void epilogue_kernel(const long long* __restrict__ acc, long long* __
 
 extern "C" {
 
-// Enqueues on `stream` the epilogue of the accumulator `acc` into `out`
-// (int64[32] on the device): (C[16], F[16]) when counters == 0, else the
-// 32 counters of n words. When `host` is not NULL, then copies `out` into
-// it (int64[32], pinned), and when `done` (a cudaEvent_t) is not NULL,
-// records it last. Returns a cudaError_t.
-int lfs_epilogue(const void* acc, void* out, EpilogueMap map, long long n, int counters,
-                 void* host, void* done, void* stream) {
+// Enqueues on `stream` of `device` (made current for the call) the
+// epilogue of the accumulator `acc` into `out` (int64[32] on the device):
+// (C[16], F[16]) when counters == 0, else the 32 counters of n words.
+// When `host` is not NULL, then copies `out` into it (int64[32],
+// pinned), and when `done` (a cudaEvent_t) is not NULL, records it last.
+// Returns a cudaError_t.
+int lfs_epilogue(int device, const void* acc, void* out, EpilogueMap map, long long n,
+                 int counters, void* host, void* done, void* stream) {
+  lfs::DeviceScope scope(device);
+  if (scope.status != cudaSuccess) return scope.status;
   auto s = static_cast<cudaStream_t>(stream);
   epilogue_kernel<<<1, 32, 0, s>>>(static_cast<const long long*>(acc),
                                     static_cast<long long*>(out), map, n, counters);

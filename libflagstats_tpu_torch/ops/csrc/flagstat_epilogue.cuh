@@ -13,5 +13,5 @@ struct EpilogueMap {
   int8_t qc;  // the QC-fail bit (flags.FQCFAIL_OFF)
 };
 
-extern "C" int lfs_epilogue(const void* acc, void* out, EpilogueMap map, long long n,
-                            int counters, void* host, void* done, void* stream);
+extern "C" int lfs_epilogue(int device, const void* acc, void* out, EpilogueMap map,
+                            long long n, int counters, void* host, void* done, void* stream);

@@ -56,8 +56,6 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include <atomic>
-
 #include "flagstat_common.cuh"
 #include "flagstat_epilogue.cuh"
 
@@ -143,95 +141,51 @@ __global__ void __launch_bounds__(kThreads)
   flush_counts<NS, kThreads>(cnt, block_sum, out);
 }
 
-template <int MODE>
-cudaError_t wave_blocks(int* blocks) {
-  return lfs::wave_blocks(stream_sums_kernel<MODE>, kThreads, blocks);
-}
+// The grid cache's entries of the three modes, indexed by Mode.
+Grid g_grids[3] = {
+    {"flagstat", 0, (const void*)stream_sums_kernel<kFlagstat>, kThreads},
+    {"flagstat_report", 0, (const void*)stream_sums_kernel<kReport>, kThreads},
+    {"pospopcnt", 0, (const void*)stream_sums_kernel<kPospopcnt>, kThreads},
+};
+[[maybe_unused]] const bool g_enrolled = enroll(g_grids);
 
-// One launch over the n > 0 words at x, its grid at most `cap` blocks.
+// The one launcher of K1, K3 and K5 on `device`, the current device:
+// with zero != 0 a cudaMemsetAsync of out first, then one launch over
+// the n words at x (none for n <= 0), its grid at most `blocks` blocks
+// when blocks > 0, else at most one wave.
 template <int MODE>
-cudaError_t enqueue(const void* x, int64_t n, unsigned long long* out, int64_t cap,
-                    cudaStream_t stream) {
-  const uintptr_t addr = reinterpret_cast<uintptr_t>(x);
-  const uintptr_t aligned = addr & ~uintptr_t(15);
-  const int64_t skip = (int64_t)(addr - aligned) / 2;
-  const int64_t end = skip + n;
-  const int64_t tiles = (end + kTileWords - 1) / kTileWords;
-  const int64_t want = (tiles + kWarps - 1) / kWarps;
-  const int grid = (int)(want < cap ? want : cap);
-  stream_sums_kernel<MODE><<<grid, kThreads, 0, stream>>>(
-      reinterpret_cast<const uint16_t*>(aligned), skip, end, tiles, out);
-  return cudaGetLastError();
-}
-
-template <int MODE>
-cudaError_t launch(const void* x, int64_t n, unsigned long long* out, int blocks, int zero,
-                   cudaStream_t stream) {
+cudaError_t launch(int device, const void* x, int64_t n, unsigned long long* out, int blocks,
+                   int zero, cudaStream_t stream) {
   if (zero) {
     const cudaError_t z = cudaMemsetAsync(out, 0, Streams<MODE>::n * sizeof(*out), stream);
     if (z != cudaSuccess) return z;
   }
   if (n <= 0) return cudaSuccess;  // a 0-block launch is an error
-  int wave = 0;
-  cudaError_t e = wave_blocks<MODE>(&wave);
-  if (e != cudaSuccess) return e;
-  if (wave < 1) return cudaErrorInvalidConfiguration;
-  return enqueue<MODE>(x, n, out, blocks > 0 ? blocks : wave, stream);
+  const uintptr_t addr = reinterpret_cast<uintptr_t>(x);
+  const uintptr_t aligned = addr & ~uintptr_t(15);
+  const int64_t skip = (int64_t)(addr - aligned) / 2;
+  const int64_t end = skip + n;
+  const int64_t tiles = (end + kTileWords - 1) / kTileWords;
+  return enqueue(g_grids[MODE], device, (tiles + kWarps - 1) / kWarps, blocks, stream,
+                 stream_sums_kernel<MODE>, reinterpret_cast<const uint16_t*>(aligned), skip,
+                 end, tiles, out);
 }
 
-// One wave of the kFlagstat and kReport kernels on each device ordinal,
-// queried at its first use there and kept: the one-call count's grid.
-// 0: not yet known. Concurrent first uses store the same value.
-constexpr int kMaxDevices = 64;
-std::atomic<int> g_wave[kMaxDevices][2];
-
-// The cached wave of `mode` on `device`, the current device.
+// lfs_flagstat_count's steps on `device`, the current device (see there).
 template <int MODE>
-cudaError_t cached_wave(int device, int* wave) {
-  if (device < 0 || device >= kMaxDevices) return cudaErrorInvalidDevice;
-  std::atomic<int>& slot = g_wave[device][MODE];
-  int w = slot.load(std::memory_order_relaxed);
-  if (w == 0) {
-    const cudaError_t e = wave_blocks<MODE>(&w);
-    if (e != cudaSuccess) return e;
-    if (w < 1) return cudaErrorInvalidConfiguration;
-    slot.store(w, std::memory_order_relaxed);
-  }
-  *wave = w;
-  return cudaSuccess;
-}
-
-// Makes `device` current for a scope and restores the caller's after.
-struct DeviceScope {
-  int prev = -1;
-  cudaError_t status;
-  explicit DeviceScope(int device) {
-    status = cudaGetDevice(&prev);
-    if (status == cudaSuccess && prev != device) status = cudaSetDevice(device);
-  }
-  ~DeviceScope() {
-    int now = -1;
-    if (prev >= 0 && cudaGetDevice(&now) == cudaSuccess && now != prev) cudaSetDevice(prev);
-  }
-};
-
-// lfs_flagstat_count's steps on the current device (see there).
-template <int MODE>
-cudaError_t count(int device, const void* src, int64_t n, void* words, void* acc,
-                  void* out, const EpilogueMap& map, void* host, void* consumed, void* done,
+cudaError_t count(int device, const void* src, int64_t n, void* words, void* acc, void* out,
+                  const EpilogueMap& map, void* host, void* consumed, void* done,
                   cudaStream_t stream) {
-  auto* sums = static_cast<unsigned long long*>(acc);
-  int wave = 0;
-  cudaError_t e = n > 0 ? cached_wave<MODE>(device, &wave) : cudaSuccess;
-  if (e == cudaSuccess && src && n > 0) {
+  cudaError_t e = cudaSuccess;
+  if (src && n > 0) {
     if (consumed) e = cudaStreamWaitEvent(stream, static_cast<cudaEvent_t>(consumed), 0);
     if (e == cudaSuccess)
       e = cudaMemcpyAsync(words, src, n * sizeof(uint16_t), cudaMemcpyHostToDevice, stream);
   }
-  if (e == cudaSuccess) e = cudaMemsetAsync(sums, 0, Streams<MODE>::n * sizeof(*sums), stream);
-  if (e == cudaSuccess && n > 0) e = enqueue<MODE>(words, n, sums, wave, stream);
+  if (e == cudaSuccess)
+    e = launch<MODE>(device, words, n, static_cast<unsigned long long*>(acc), 0, 1, stream);
   if (e != cudaSuccess) return e;
-  return static_cast<cudaError_t>(lfs_epilogue(acc, out, map, n, 1, host, done, stream));
+  return static_cast<cudaError_t>(lfs_epilogue(device, acc, out, map, n, 1, host, done, stream));
 }
 
 }  // namespace
@@ -239,36 +193,41 @@ cudaError_t count(int device, const void* src, int64_t n, void* words, void* acc
 extern "C" {
 
 // Adds the per-stream counts of the n uint16 words at x into out
-// (int64[Streams<mode>::n]), on `stream`; with zero != 0 a
-// cudaMemsetAsync on `stream` zeroes out first (also for n = 0, which
-// launches nothing). x must be 2-byte aligned. blocks > 0 is the most
-// blocks the grid gets (a sweep's knob); 0 gives it one wave at most.
-// Returns a cudaError_t.
-int lfs_stream_sums(int mode, const void* x, long long n, void* out, int blocks, int zero,
-                    void* stream) {
+// (int64[Streams<mode>::n]), on `stream` of `device` (made current for
+// the call); with zero != 0 a cudaMemsetAsync on `stream` zeroes out
+// first (also for n = 0, which launches nothing). x must be 2-byte
+// aligned. blocks > 0 is the most blocks the grid gets (a sweep's knob);
+// 0 gives it one wave at most. Returns a cudaError_t.
+int lfs_stream_sums(int device, int mode, const void* x, long long n, void* out, int blocks,
+                    int zero, void* stream) {
+  DeviceScope scope(device);
+  if (scope.status != cudaSuccess) return scope.status;
   auto* o = static_cast<unsigned long long*>(out);
   auto s = static_cast<cudaStream_t>(stream);
   switch (mode) {
-    case kFlagstat: return launch<kFlagstat>(x, n, o, blocks, zero, s);
-    case kReport: return launch<kReport>(x, n, o, blocks, zero, s);
-    case kPospopcnt: return launch<kPospopcnt>(x, n, o, blocks, zero, s);
+    case kFlagstat: return launch<kFlagstat>(device, x, n, o, blocks, zero, s);
+    case kReport: return launch<kReport>(device, x, n, o, blocks, zero, s);
+    case kPospopcnt: return launch<kPospopcnt>(device, x, n, o, blocks, zero, s);
     default: return cudaErrorInvalidValue;
   }
 }
 
-// The most blocks one launch of `mode` runs on the current device (one
-// wave: SMs times resident blocks per SM). Returns a cudaError_t.
-int lfs_wave_blocks(int mode, int* blocks) {
-  switch (mode) {
-    case kFlagstat: return wave_blocks<kFlagstat>(blocks);
-    case kReport: return wave_blocks<kReport>(blocks);
-    case kPospopcnt: return wave_blocks<kPospopcnt>(blocks);
-    default: return cudaErrorInvalidValue;
-  }
+// The blocks of one wave of the kernel Python names `key` (a key of
+// kernels.LAUNCHES; `variant`: K2's plane rows, K9's op, else 0) on
+// `device`: the grid cache's entry, which every launch of that kernel
+// reads, filled here at its first use. Returns a cudaError_t
+// (cudaErrorInvalidValue for a kernel the cache does not hold).
+int lfs_wave_blocks(int device, const char* key, int variant, int* blocks) {
+  Grid* g = find_grid(key, variant);
+  if (!g) return cudaErrorInvalidValue;
+  DeviceScope scope(device);
+  if (scope.status != cudaSuccess) return scope.status;
+  return wave_blocks(*g, device, blocks);
 }
 
-// Words one warp tile covers; a wave of `blocks` blocks covers
-// blocks * lfs_words_per_block() words before its grid-stride loop turns.
+// Words one block covers per turn of its grid-stride loop; a wave of
+// `blocks` blocks covers blocks * lfs_words_per_block() words before
+// its grid-stride loop turns.
 int lfs_words_per_block(void) { return kWarps * kTileWords; }
 
 // One count of the n uint16 words of one piece, and its readback, all
@@ -276,14 +235,14 @@ int lfs_words_per_block(void) { return kWarps * kTileWords; }
 // call, so that the host's per-call work is this call: for a host
 // source (src not NULL, pinned), the copy of its n words into `words`
 // on the device, after `stream` waits for the event `consumed` when it
-// is not NULL (the last reader of `words`); a cudaMemsetAsync of the
-// accumulator `acc`; one launch of K1 (mode kFlagstat) or K3 (kReport)
-// over `words`, adding into `acc`, its grid one wave at most, taken from
-// a cache per device and mode filled at first use; the epilogue into
-// `out` in its counters form with n; the copy of `out` into `host`
-// (pinned int64[32]); and the record of the event `done`. Nothing
-// waits: the caller synchronises on `done`. n = 0 copies and launches
-// no count. `words` must be 2-byte aligned. Returns a cudaError_t.
+// is not NULL (the last reader of `words`); then the launcher of
+// lfs_stream_sums over `words` in mode kFlagstat (K1) or kReport (K3),
+// zeroing the accumulator `acc` and adding into it on the grid cache's
+// wave; the epilogue into `out` in its counters form with n; the copy of
+// `out` into `host` (pinned int64[32]); and the record of the event
+// `done`. Nothing waits: the caller synchronises on `done`. n = 0 copies
+// and launches no count. `words` must be 2-byte aligned. Returns a
+// cudaError_t.
 int lfs_flagstat_count(int device, int mode, const void* src, long long n, void* words,
                        void* acc, void* out, EpilogueMap map, void* host, void* consumed,
                        void* done, void* stream) {
@@ -295,19 +254,6 @@ int lfs_flagstat_count(int device, int mode, const void* src, long long n, void*
       return count<kFlagstat>(device, src, n, words, acc, out, map, host, consumed, done, s);
     case kReport:
       return count<kReport>(device, src, n, words, acc, out, map, host, consumed, done, s);
-    default: return cudaErrorInvalidValue;
-  }
-}
-
-// The wave lfs_flagstat_count gives `mode` (kFlagstat or kReport) on
-// `device`, filling the cache at its first use there. Returns a
-// cudaError_t.
-int lfs_cached_wave_blocks(int device, int mode, int* blocks) {
-  DeviceScope scope(device);
-  if (scope.status != cudaSuccess) return scope.status;
-  switch (mode) {
-    case kFlagstat: return cached_wave<kFlagstat>(device, blocks);
-    case kReport: return cached_wave<kReport>(device, blocks);
     default: return cudaErrorInvalidValue;
   }
 }

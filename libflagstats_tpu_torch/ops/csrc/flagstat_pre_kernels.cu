@@ -125,24 +125,26 @@ __global__ void __launch_bounds__(kThreads)
   flush_counts<NS, kThreads>(cnt, block_sum, out);
 }
 
+// The grid cache's entries of K2's four (mode, rows) kernels.
+Grid g_grids[4] = {
+    {"pre", 32, (const void*)stream_sums_pre_kernel<kFlagstat, 32>, kThreads},
+    {"pre", 24, (const void*)stream_sums_pre_kernel<kFlagstat, 24>, kThreads},
+    {"pre_report", 32, (const void*)stream_sums_pre_kernel<kReport, 32>, kThreads},
+    {"pre_report", 20, (const void*)stream_sums_pre_kernel<kReport, 20>, kThreads},
+};
+[[maybe_unused]] const bool g_enrolled = enroll(g_grids);
+
 template <int MODE, int R>
-cudaError_t launch_pre(const void* planes, int64_t groups, unsigned long long* out,
-                       int blocks, int zero, cudaStream_t stream) {
+cudaError_t launch_pre(Grid& g, int device, const void* planes, int64_t groups,
+                       unsigned long long* out, int blocks, int zero, cudaStream_t stream) {
   if (zero) {
     const cudaError_t z = cudaMemsetAsync(out, 0, Streams<MODE>::n * sizeof(*out), stream);
     if (z != cudaSuccess) return z;
   }
   if (groups <= 0) return cudaSuccess;  // a 0-block launch is an error
   if (reinterpret_cast<uintptr_t>(planes) % 16) return cudaErrorInvalidValue;
-  int wave = 0;
-  cudaError_t e = wave_blocks(stream_sums_pre_kernel<MODE, R>, kThreads, &wave);
-  if (e != cudaSuccess) return e;
-  if (wave < 1) return cudaErrorInvalidConfiguration;
-  const int64_t cap = blocks > 0 ? blocks : wave;
-  const int grid = (int)(groups < cap ? groups : cap);
-  stream_sums_pre_kernel<MODE, R><<<grid, kThreads, 0, stream>>>(
-      static_cast<const uint4*>(planes), groups, out);
-  return cudaGetLastError();
+  return enqueue(g, device, groups, blocks, stream, stream_sums_pre_kernel<MODE, R>,
+                 static_cast<const uint4*>(planes), groups, out);
 }
 
 }  // namespace
@@ -150,39 +152,28 @@ cudaError_t launch_pre(const void* planes, int64_t groups, unsigned long long* o
 extern "C" {
 
 // Adds the per-stream counts of `groups` (rows, 8, 128) uint32 plane
-// tiles at `planes` into out (int64[Streams<mode>::n]), on `stream`;
-// with zero != 0 a cudaMemsetAsync on `stream` zeroes out first (also
-// for groups = 0, which launches nothing). planes must be 16-byte
-// aligned. blocks > 0 is the most blocks the grid gets (a sweep's knob);
-// 0 gives it one wave at most. Returns a cudaError_t
-// (cudaErrorInvalidValue for a (mode, rows) pair with no kernel).
-int lfs_stream_sums_pre(int mode, int rows, const void* planes, long long groups,
+// tiles at `planes` into out (int64[Streams<mode>::n]), on `stream` of
+// `device` (made current for the call); with zero != 0 a
+// cudaMemsetAsync on `stream` zeroes out first (also for groups = 0,
+// which launches nothing). planes must be 16-byte aligned. blocks > 0 is
+// the most blocks the grid gets (a sweep's knob); 0 gives it one wave at
+// most, which is the groups one wave covers (a block takes one group per
+// turn of its loop). Returns a cudaError_t (cudaErrorInvalidValue for a
+// (mode, rows) pair with no kernel).
+int lfs_stream_sums_pre(int device, int mode, int rows, const void* planes, long long groups,
                         void* out, int blocks, int zero, void* stream) {
+  DeviceScope scope(device);
+  if (scope.status != cudaSuccess) return scope.status;
   auto* o = static_cast<unsigned long long*>(out);
   auto s = static_cast<cudaStream_t>(stream);
   if (mode == kFlagstat && rows == 32)
-    return launch_pre<kFlagstat, 32>(planes, groups, o, blocks, zero, s);
+    return launch_pre<kFlagstat, 32>(g_grids[0], device, planes, groups, o, blocks, zero, s);
   if (mode == kFlagstat && rows == 24)
-    return launch_pre<kFlagstat, 24>(planes, groups, o, blocks, zero, s);
+    return launch_pre<kFlagstat, 24>(g_grids[1], device, planes, groups, o, blocks, zero, s);
   if (mode == kReport && rows == 32)
-    return launch_pre<kReport, 32>(planes, groups, o, blocks, zero, s);
+    return launch_pre<kReport, 32>(g_grids[2], device, planes, groups, o, blocks, zero, s);
   if (mode == kReport && rows == 20)
-    return launch_pre<kReport, 20>(planes, groups, o, blocks, zero, s);
-  return cudaErrorInvalidValue;
-}
-
-// The most blocks one launch of (mode, rows) runs on the current device,
-// which is the groups one wave covers (a block takes one group per turn
-// of its loop). Returns a cudaError_t.
-int lfs_pre_wave_blocks(int mode, int rows, int* blocks) {
-  if (mode == kFlagstat && rows == 32)
-    return wave_blocks(stream_sums_pre_kernel<kFlagstat, 32>, kThreads, blocks);
-  if (mode == kFlagstat && rows == 24)
-    return wave_blocks(stream_sums_pre_kernel<kFlagstat, 24>, kThreads, blocks);
-  if (mode == kReport && rows == 32)
-    return wave_blocks(stream_sums_pre_kernel<kReport, 32>, kThreads, blocks);
-  if (mode == kReport && rows == 20)
-    return wave_blocks(stream_sums_pre_kernel<kReport, 20>, kThreads, blocks);
+    return launch_pre<kReport, 20>(g_grids[3], device, planes, groups, o, blocks, zero, s);
   return cudaErrorInvalidValue;
 }
 

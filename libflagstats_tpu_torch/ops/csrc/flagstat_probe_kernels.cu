@@ -314,95 +314,98 @@ __global__ void __launch_bounds__(kThreads)
   flush_xor<kThreads>(acc.x ^ acc.y ^ acc.z ^ acc.w, out);
 }
 
-template <typename Kernel>
-cudaError_t grid_for(Kernel kernel, int64_t want, int* grid) {
-  int blocks = 0;
-  cudaError_t e = wave_blocks(kernel, kThreads, &blocks);
-  if (e != cudaSuccess) return e;
-  if (blocks < 1) return cudaErrorInvalidConfiguration;
-  *grid = (int)(want < 1 ? 1 : want < blocks ? want : blocks);
-  return cudaSuccess;
-}
+// The grid cache's entries of the five probes.
+enum Probe { kReadXor, kTransposeXor, kTransformXor, kRaw, kFoldXor };
+Grid g_grids[5] = {
+    {"read_xor", 0, (const void*)read_xor_kernel, kThreads},
+    {"transpose_xor", 0, (const void*)transpose_xor_kernel, kThreads},
+    {"transform_xor", 0, (const void*)transform_xor_kernel, kThreads},
+    {"raw", 0, (const void*)stream_sums_raw_kernel, kThreads},
+    {"fold_xor", 0, (const void*)fold_xor_kernel, kThreads},
+};
+[[maybe_unused]] const bool g_enrolled = enroll(g_grids);
 
 }  // namespace
 
 extern "C" {
 
+// Each launcher enqueues on `stream` of `device` (made current for the
+// call); its grid is the blocks its work wants, at most one wave.
+
 // Xors the K4 digest of the n uint16 words at x into *out (uint32,
-// zeroed by the caller), on `stream`. x must be 2-byte aligned. Returns
-// a cudaError_t.
-int lfs_read_xor(const void* x, long long n, void* out, void* stream) {
+// zeroed by the caller). x must be 2-byte aligned. Returns a
+// cudaError_t.
+int lfs_read_xor(int device, const void* x, long long n, void* out, void* stream) {
   if (n <= 0) return cudaSuccess;  // a 0-block launch is an error
+  DeviceScope scope(device);
+  if (scope.status != cudaSuccess) return scope.status;
   const uintptr_t addr = reinterpret_cast<uintptr_t>(x);
   const uintptr_t aligned = addr & ~uintptr_t(15);
   const int64_t skip = (int64_t)(addr - aligned) / 2;
   const int64_t vectors = (skip + n) / 8 - (skip + 7) / 8;
-  int grid = 0;
-  cudaError_t e = grid_for(read_xor_kernel, (vectors + kThreads - 1) / kThreads, &grid);
-  if (e != cudaSuccess) return e;
-  read_xor_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      reinterpret_cast<const uint16_t*>(aligned), skip, skip + n, static_cast<unsigned int*>(out));
-  return cudaGetLastError();
+  return enqueue(g_grids[kReadXor], device, (vectors + kThreads - 1) / kThreads, 0,
+                 static_cast<cudaStream_t>(stream), read_xor_kernel,
+                 reinterpret_cast<const uint16_t*>(aligned), skip, skip + n,
+                 static_cast<unsigned int*>(out));
 }
 
 // Xors the transpose probe's digest of the n words at x, `repeat` chained
 // pruned transposes, into *out (uint32, zeroed by the caller).
-int lfs_transpose_xor(const void* x, long long n, int repeat, void* out, void* stream) {
+int lfs_transpose_xor(int device, const void* x, long long n, int repeat, void* out,
+                      void* stream) {
   if (n <= 0 || repeat < 1) return n <= 0 ? cudaSuccess : cudaErrorInvalidValue;
+  DeviceScope scope(device);
+  if (scope.status != cudaSuccess) return scope.status;
   const int64_t positions = (n + kGroupWords - 1) / kGroupWords * kPositions;
-  int grid = 0;
-  cudaError_t e = grid_for(transpose_xor_kernel, (positions + kThreads - 1) / kThreads, &grid);
-  if (e != cudaSuccess) return e;
-  transpose_xor_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint16_t*>(x), n, positions, repeat, static_cast<unsigned int*>(out));
-  return cudaGetLastError();
+  return enqueue(g_grids[kTransposeXor], device, (positions + kThreads - 1) / kThreads, 0,
+                 static_cast<cudaStream_t>(stream), transpose_xor_kernel,
+                 static_cast<const uint16_t*>(x), n, positions, repeat,
+                 static_cast<unsigned int*>(out));
 }
 
 // Xors the transform probe's digest of `groups` (32, 8, 128) uint32 plane
 // tiles at planes (4-byte aligned), `repeat` chained transforms, into
 // *out (uint32, zeroed by the caller).
-int lfs_transform_xor(const void* planes, long long groups, int repeat, void* out, void* stream) {
+int lfs_transform_xor(int device, const void* planes, long long groups, int repeat, void* out,
+                      void* stream) {
   if (groups <= 0 || repeat < 1) return groups <= 0 ? cudaSuccess : cudaErrorInvalidValue;
+  DeviceScope scope(device);
+  if (scope.status != cudaSuccess) return scope.status;
   const int64_t positions = groups * kPositions;
-  int grid = 0;
-  cudaError_t e = grid_for(transform_xor_kernel, (positions + kThreads - 1) / kThreads, &grid);
-  if (e != cudaSuccess) return e;
-  transform_xor_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint32_t*>(planes), positions, repeat, 0u,
-      static_cast<unsigned int*>(out));
-  return cudaGetLastError();
+  return enqueue(g_grids[kTransformXor], device, (positions + kThreads - 1) / kThreads, 0,
+                 static_cast<cudaStream_t>(stream), transform_xor_kernel,
+                 static_cast<const uint32_t*>(planes), positions, repeat, 0u,
+                 static_cast<unsigned int*>(out));
 }
 
 // Adds the count probe's 29 stream sums of `groups` (32, 8, 128) uint32
 // plane tiles at planes (16-byte aligned), each counted `repeat` times,
 // into out (int64[>= 29], zeroed by the caller).
-int lfs_stream_sums_raw(const void* planes, long long groups, int repeat, void* out,
+int lfs_stream_sums_raw(int device, const void* planes, long long groups, int repeat, void* out,
                         void* stream) {
   if (groups <= 0 || repeat < 1) return groups <= 0 ? cudaSuccess : cudaErrorInvalidValue;
   if (reinterpret_cast<uintptr_t>(planes) % 16) return cudaErrorInvalidValue;
-  int grid = 0;
-  cudaError_t e = grid_for(stream_sums_raw_kernel, groups, &grid);
-  if (e != cudaSuccess) return e;
-  stream_sums_raw_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint4*>(planes), groups, repeat, 0u, 0u,
-      static_cast<unsigned long long*>(out));
-  return cudaGetLastError();
+  DeviceScope scope(device);
+  if (scope.status != cudaSuccess) return scope.status;
+  return enqueue(g_grids[kRaw], device, groups, 0, static_cast<cudaStream_t>(stream),
+                 stream_sums_raw_kernel, static_cast<const uint4*>(planes), groups, repeat, 0u,
+                 0u, static_cast<unsigned long long*>(out));
 }
 
 // Xors the fold of the rows in `mask` of `groups` (nrows, 8, 128) uint32
 // plane tiles at planes (16-byte aligned; nrows <= 32, mask within it)
 // into *out (uint32, zeroed by the caller).
-int lfs_fold_xor(const void* planes, long long groups, int nrows, unsigned int mask, void* out,
-                 void* stream) {
+int lfs_fold_xor(int device, const void* planes, long long groups, int nrows, unsigned int mask,
+                 void* out, void* stream) {
   if (nrows < 1 || nrows > 32 || (nrows < 32 && (mask >> nrows))) return cudaErrorInvalidValue;
   if (groups <= 0 || mask == 0) return cudaSuccess;  // a 0-block launch is an error
   if (reinterpret_cast<uintptr_t>(planes) % 16) return cudaErrorInvalidValue;
-  int grid = 0;
-  cudaError_t e = grid_for(fold_xor_kernel, groups * __builtin_popcount(mask), &grid);
-  if (e != cudaSuccess) return e;
-  fold_xor_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint4*>(planes), groups, nrows, mask, static_cast<unsigned int*>(out));
-  return cudaGetLastError();
+  DeviceScope scope(device);
+  if (scope.status != cudaSuccess) return scope.status;
+  return enqueue(g_grids[kFoldXor], device, groups * __builtin_popcount(mask), 0,
+                 static_cast<cudaStream_t>(stream), fold_xor_kernel,
+                 static_cast<const uint4*>(planes), groups, nrows, mask,
+                 static_cast<unsigned int*>(out));
 }
 
 }  // extern "C"

@@ -273,22 +273,28 @@ __global__ void __launch_bounds__(kThreads)
     if (block_sum[s]) atomicAdd(&out[s], block_sum[s]);
 }
 
+// K6's entry in the grid cache.
+lfs::Grid g_grids[1] = {{"words", 0, (const void*)stream_sums_words_kernel, kThreads}};
+[[maybe_unused]] const bool g_enrolled = lfs::enroll(g_grids);
+
 }  // namespace
 
 extern "C" {
 
 // Adds the pass/fail bit counts of the n uint16 words at x into out
-// (int64[30]), on `stream`; with zero != 0 a cudaMemsetAsync on `stream`
-// zeroes out first (also for n = 0, which launches nothing). x must be
-// 2-byte aligned. blocks > 0 is the most blocks the grid gets (a sweep's
-// knob, and the tests' way to run one thread far past a flush); 0 gives
-// it one wave at most.
+// (int64[30]), on `stream` of `device` (made current for the call); with
+// zero != 0 a cudaMemsetAsync on `stream` zeroes out first (also for
+// n = 0, which launches nothing). x must be 2-byte aligned. blocks > 0
+// is the most blocks the grid gets (a sweep's knob, and the tests' way
+// to run one thread far past a flush); 0 gives it one wave at most.
 // Returns a cudaError_t.
-int lfs_stream_sums_words(const void* x, long long n, void* out, int blocks, int zero,
-                          void* stream) {
+int lfs_stream_sums_words(int device, const void* x, long long n, void* out, int blocks,
+                          int zero, void* stream) {
+  lfs::DeviceScope scope(device);
+  if (scope.status != cudaSuccess) return scope.status;
+  auto s = static_cast<cudaStream_t>(stream);
   if (zero) {
-    const cudaError_t z = cudaMemsetAsync(out, 0, kStreams * sizeof(unsigned long long),
-                                          static_cast<cudaStream_t>(stream));
+    const cudaError_t z = cudaMemsetAsync(out, 0, kStreams * sizeof(unsigned long long), s);
     if (z != cudaSuccess) return z;
   }
   if (n <= 0) return cudaSuccess;  // a 0-block launch is an error
@@ -297,22 +303,9 @@ int lfs_stream_sums_words(const void* x, long long n, void* out, int blocks, int
   const int64_t skip = (int64_t)(addr - aligned) / 2;
   const int64_t end = skip + n;
   const int64_t tiles = (end + kTileWords - 1) / kTileWords;
-  int wave = 0;
-  cudaError_t e = lfs::wave_blocks(stream_sums_words_kernel, kThreads, &wave);
-  if (e != cudaSuccess) return e;
-  if (wave < 1) return cudaErrorInvalidConfiguration;
-  const int64_t cap = blocks > 0 ? blocks : wave;
-  const int grid = (int)(tiles < cap ? tiles : cap);
-  stream_sums_words_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      reinterpret_cast<const uint16_t*>(aligned), skip, end, tiles,
-      static_cast<unsigned long long*>(out));
-  return cudaGetLastError();
-}
-
-// The most blocks one launch runs on the current device (one wave).
-// Returns a cudaError_t.
-int lfs_words_wave_blocks(int* blocks) {
-  return lfs::wave_blocks(stream_sums_words_kernel, kThreads, blocks);
+  return lfs::enqueue(g_grids[0], device, tiles, blocks, s, stream_sums_words_kernel,
+                      reinterpret_cast<const uint16_t*>(aligned), skip, end, tiles,
+                      static_cast<unsigned long long*>(out));
 }
 
 // Words one block covers per turn of its grid-stride loop.

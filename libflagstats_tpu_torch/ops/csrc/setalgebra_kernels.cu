@@ -103,8 +103,17 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+// The grid cache's entries of the four ops, indexed by Op.
+lfs::Grid g_grids[4] = {
+    {"setop", kIntersect, (const void*)setop_count_kernel<kIntersect>, kThreads},
+    {"setop", kUnion, (const void*)setop_count_kernel<kUnion>, kThreads},
+    {"setop", kDiff, (const void*)setop_count_kernel<kDiff>, kThreads},
+    {"setop", kPopcnt, (const void*)setop_count_kernel<kPopcnt>, kThreads},
+};
+[[maybe_unused]] const bool g_enrolled = lfs::enroll(g_grids);
+
 template <int OP>
-cudaError_t launch(const void* a, const void* b, int64_t n, unsigned long long* out,
+cudaError_t launch(int device, const void* a, const void* b, int64_t n, unsigned long long* out,
                    cudaStream_t stream) {
   const uintptr_t pa = reinterpret_cast<uintptr_t>(a);
   const uintptr_t pb = OP == kPopcnt ? pa : reinterpret_cast<uintptr_t>(b);
@@ -115,16 +124,10 @@ cudaError_t launch(const void* a, const void* b, int64_t n, unsigned long long* 
     if (head > n) head = n;
     vecs = (n - head) / 4;
   }
-  int wave = 0;
-  cudaError_t e = lfs::wave_blocks(setop_count_kernel<OP>, kThreads, &wave);
-  if (e != cudaSuccess) return e;
-  if (wave < 1) return cudaErrorInvalidConfiguration;
   const int64_t work = vecs > n - 4 * vecs ? vecs : n - 4 * vecs;
-  const int64_t want = (work + kThreads - 1) / kThreads;
-  const int grid = (int)(want < wave ? want : wave);
-  setop_count_kernel<OP><<<grid, kThreads, 0, stream>>>(
-      static_cast<const uint32_t*>(a), static_cast<const uint32_t*>(b), n, head, vecs, out);
-  return cudaGetLastError();
+  return lfs::enqueue(g_grids[OP], device, (work + kThreads - 1) / kThreads, 0, stream,
+                      setop_count_kernel<OP>, static_cast<const uint32_t*>(a),
+                      static_cast<const uint32_t*>(b), n, head, vecs, out);
 }
 
 }  // namespace
@@ -133,18 +136,20 @@ extern "C" {
 
 // Adds sum(popcount(f(a, b))) over the n uint32 lanes at a and b (4-byte
 // aligned; b is not read for op 3) into *out (uint64, zeroed by the
-// caller), on `stream`. op: 0 a & b, 1 a | b, 2 a & ~b, 3 a. Returns a
-// cudaError_t.
-int lfs_setop_count_cuda(int op, const void* a, const void* b, long long n, void* out,
-                         void* stream) {
+// caller), on `stream` of `device` (made current for the call). op: 0
+// a & b, 1 a | b, 2 a & ~b, 3 a. Returns a cudaError_t.
+int lfs_setop_count_cuda(int device, int op, const void* a, const void* b, long long n,
+                         void* out, void* stream) {
   if (n <= 0) return cudaSuccess;  // a 0-block launch is an error
+  lfs::DeviceScope scope(device);
+  if (scope.status != cudaSuccess) return scope.status;
   auto* o = static_cast<unsigned long long*>(out);
   auto s = static_cast<cudaStream_t>(stream);
   switch (op) {
-    case kIntersect: return launch<kIntersect>(a, b, n, o, s);
-    case kUnion: return launch<kUnion>(a, b, n, o, s);
-    case kDiff: return launch<kDiff>(a, b, n, o, s);
-    case kPopcnt: return launch<kPopcnt>(a, b, n, o, s);
+    case kIntersect: return launch<kIntersect>(device, a, b, n, o, s);
+    case kUnion: return launch<kUnion>(device, a, b, n, o, s);
+    case kDiff: return launch<kDiff>(device, a, b, n, o, s);
+    case kPopcnt: return launch<kPopcnt>(device, a, b, n, o, s);
     default: return cudaErrorInvalidValue;
   }
 }

@@ -90,48 +90,36 @@ def build() -> Path:
     return lib_path
 
 
+_VP, _I64, _I32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
+#: every entry of the library and its arguments; each returns an int (a
+#: cudaError_t, or the constant it names). The launchers take the device
+#: ordinal first and the stream last (``kernels.launch``).
+ENTRIES = {
+    "lfs_stream_sums": [_I32, _I32, _VP, _I64, _VP, _I32, _I32, _VP],
+    "lfs_stream_sums_pre": [_I32, _I32, _I32, _VP, _I64, _VP, _I32, _I32, _VP],
+    "lfs_stream_sums_words": [_I32, _VP, _I64, _VP, _I32, _I32, _VP],
+    "lfs_epilogue": [_I32, _VP, _VP, EpilogueMap, _I64, _I32, _VP, _VP, _VP],
+    "lfs_flagstat_count": [_I32, _I32, _VP, _I64, _VP, _VP, _VP, EpilogueMap, _VP, _VP, _VP,
+                           _VP],
+    "lfs_setop_count_cuda": [_I32, _I32, _VP, _VP, _I64, _VP, _VP],
+    "lfs_read_xor": [_I32, _VP, _I64, _VP, _VP],
+    "lfs_transpose_xor": [_I32, _VP, _I64, _I32, _VP, _VP],
+    "lfs_transform_xor": [_I32, _VP, _I64, _I32, _VP, _VP],
+    "lfs_stream_sums_raw": [_I32, _VP, _I64, _I32, _VP, _VP],
+    "lfs_fold_xor": [_I32, _VP, _I64, _I32, ctypes.c_uint32, _VP, _VP],
+    "lfs_wave_blocks": [_I32, ctypes.c_char_p, _I32, ctypes.POINTER(ctypes.c_int)],
+    "lfs_words_per_block": [],
+    "lfs_words_block_words": [],
+    "lfs_words_flush_bodies": [],
+}
+
+
 def load() -> ctypes.CDLL:
     """The bound kernel library, built at first use."""
     global _lib
     if _lib is None:
         lib = ctypes.CDLL(str(build()))
-        lib.lfs_stream_sums.argtypes = [ctypes.c_int, ctypes.c_void_p,
-                                        ctypes.c_int64, ctypes.c_void_p,
-                                        ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
-        lib.lfs_stream_sums.restype = ctypes.c_int
-        lib.lfs_wave_blocks.argtypes = [ctypes.c_int,
-                                        ctypes.POINTER(ctypes.c_int)]
-        lib.lfs_wave_blocks.restype = ctypes.c_int
-        lib.lfs_words_per_block.argtypes = []
-        lib.lfs_words_per_block.restype = ctypes.c_int
-        lib.lfs_stream_sums_pre.argtypes = [ctypes.c_int, ctypes.c_int,
-                                            ctypes.c_void_p, ctypes.c_int64,
-                                            ctypes.c_void_p, ctypes.c_int,
-                                            ctypes.c_int, ctypes.c_void_p]
-        lib.lfs_stream_sums_pre.restype = ctypes.c_int
-        lib.lfs_pre_wave_blocks.argtypes = [ctypes.c_int, ctypes.c_int,
-                                            ctypes.POINTER(ctypes.c_int)]
-        lib.lfs_pre_wave_blocks.restype = ctypes.c_int
-        lib.lfs_stream_sums_words.argtypes = [ctypes.c_void_p, ctypes.c_int64,
-                                              ctypes.c_void_p, ctypes.c_int,
-                                              ctypes.c_int, ctypes.c_void_p]
-        lib.lfs_stream_sums_words.restype = ctypes.c_int
-        lib.lfs_words_wave_blocks.argtypes = [ctypes.POINTER(ctypes.c_int)]
-        lib.lfs_words_wave_blocks.restype = ctypes.c_int
-        for name in ("lfs_words_block_words", "lfs_words_flush_bodies"):
-            getattr(lib, name).argtypes = []
-            getattr(lib, name).restype = ctypes.c_int
-        vp, i64, i32, u32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int, ctypes.c_uint32
-        for name, args in (("lfs_read_xor", [vp, i64, vp, vp]),
-                           ("lfs_transpose_xor", [vp, i64, i32, vp, vp]),
-                           ("lfs_transform_xor", [vp, i64, i32, vp, vp]),
-                           ("lfs_stream_sums_raw", [vp, i64, i32, vp, vp]),
-                           ("lfs_fold_xor", [vp, i64, i32, u32, vp, vp]),
-                           ("lfs_setop_count_cuda", [i32, vp, vp, i64, vp, vp]),
-                           ("lfs_epilogue", [vp, vp, EpilogueMap, i64, i32, vp, vp, vp]),
-                           ("lfs_flagstat_count", [i32, i32, vp, i64, vp, vp, vp, EpilogueMap,
-                                                   vp, vp, vp, vp]),
-                           ("lfs_cached_wave_blocks", [i32, i32, ctypes.POINTER(ctypes.c_int)])):
+        for name, args in ENTRIES.items():
             getattr(lib, name).argtypes = args
             getattr(lib, name).restype = ctypes.c_int
         _lib = lib

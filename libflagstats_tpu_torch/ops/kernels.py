@@ -29,14 +29,19 @@ column's pieces add up on the card with no torch op between launches.
   or the 32 counters, through the map ``epilogue_map(kind)`` passed by
   value; ``counters_cuda`` reads the counters back into this thread's
   pinned buffer with one wait. ``epilogue_plain`` applies the same map in
-  torch: the kernel's twin. On a CPU tensor the paths keep the plain
-  versions, ``_sums_to_streams`` and ``torch_ops.assemble_counters``.
+  torch: the kernel's twin, which ends every count on the CPU
+  (``counters_of``).
 * ``flagstat_count(dev, mode, words, n)`` is a whole one-piece count
   and its readback in one native call (``lfs_flagstat_count``, in
-  ops/csrc/flagstat_kernels.cu): the copy of a pinned host piece, the
-  memset, K1 or K3 on a grid cached per device, the epilogue and the
-  pinned copy, then one wait. ``ops/dispatch.py`` takes it for a count
-  that is one piece.
+  ops/csrc/flagstat_kernels.cu): the copy of a pinned host piece, then
+  K1's launcher (the memset and K1 or K3), the epilogue and the pinned
+  copy, then one wait. ``ops/dispatch.py`` takes it for a count that is
+  one piece.
+
+Every kernel of ops/csrc is launched through ``launch``: the device's
+ordinal first, which the native launcher makes current for the call,
+and its current stream last. Each native launcher reads its grid from
+one cache kept per kernel and device (``wave_blocks``).
 """
 from __future__ import annotations
 
@@ -49,7 +54,8 @@ import torch
 from .. import flags as F
 from ..bench import profiling
 from . import bitslice as B
-from .torch_ops import as_words, assemble_counters
+from . import cuda_build
+from .torch_ops import as_words
 
 SUB = 8            # sublanes per register tile
 LANE = 128         # lanes per register tile
@@ -314,6 +320,28 @@ def add_plain(out, sums: torch.Tensor, zero: bool) -> torch.Tensor:
     return out
 
 
+def raw_stream(dev: torch.device) -> int:
+    """The handle of ``dev``'s current CUDA stream, taken at each call (a
+    caller's ``torch.cuda.stream(...)`` holds), with no Stream object
+    made."""
+    return torch._C._cuda_getCurrentRawStream(dev.index)
+
+
+def launch(entry: str, key: str, dev: torch.device, *args, ran: bool = True) -> None:
+    """Call the native launcher ``entry`` (ops/csrc) for the kernel
+    ``key`` (a ``LAUNCHES`` key) on the CUDA device ``dev``: ``dev``'s
+    ordinal first, which the launcher makes current for the call, then
+    ``args``, then the handle of ``dev``'s current stream (``raw_stream``).
+    Raises RuntimeError naming ``entry`` and ``key`` on a nonzero return
+    (a cudaError_t). Counts ``LAUNCHES[key]`` when ``ran``: the call
+    enqueued a kernel of ``key``."""
+    err = getattr(cuda_build.load(), entry)(dev.index, *args, raw_stream(dev))
+    if err:
+        raise RuntimeError(f"{entry} ({key}) failed: cudaError {err}")
+    if ran:
+        LAUNCHES[key] += 1
+
+
 def stream_sums_cuda(x: torch.Tensor, mode: str = "flagstat",
                      blocks: int | None = None, out: torch.Tensor | None = None,
                      zero: bool = False) -> torch.Tensor:
@@ -336,41 +364,34 @@ def stream_sums_cuda(x: torch.Tensor, mode: str = "flagstat",
         if check_cuda_words(x):
             return add_plain(out, stream_sums_plain(x, mode), zero)
         out, zero = accumulator(out, zero, N_STREAMS[mode], x.device)
-        from . import cuda_build
-
-        lib = cuda_build.load()
-        with torch.cuda.device(x.device):
-            stream = torch.cuda.current_stream().cuda_stream
-            err = lib.lfs_stream_sums(_MODE_ID[mode], x.data_ptr(), x.numel(),
-                                      out.data_ptr(), blocks, zero, stream)
-        if err:
-            raise RuntimeError(f"stream_sums kernel ({mode}) failed: cudaError {err}")
-        if x.numel():
-            LAUNCHES[mode] += 1
+        launch("lfs_stream_sums", mode, x.device, _MODE_ID[mode], x.data_ptr(), x.numel(),
+               out.data_ptr(), blocks, zero, ran=x.numel() > 0)
         return out
 
 
-def wave_blocks(mode: str = "flagstat", device=None) -> int:
-    """Blocks of the kernel resident at once on ``device``: one full
-    wave, the default grid's cap."""
-    _check_mode(mode)
-    from . import cuda_build
-
-    lib = cuda_build.load()
+def wave_blocks(key: str = "flagstat", device=None, variant: int = 0) -> int:
+    """Blocks of the kernel ``key`` (a ``LAUNCHES`` key; ``variant``:
+    K2's plane rows, 32 or the packed 24/20, or K9's op id) resident at
+    once on ``device`` (default: the current CUDA device): one full wave,
+    the default grid's cap. It is the launchers' own grid cache, kept per
+    kernel and device and filled at its first use there."""
+    index = torch.device("cuda" if device is None else device).index
     blocks = ctypes.c_int(0)
-    with torch.cuda.device(device):
-        err = lib.lfs_wave_blocks(_MODE_ID[mode], ctypes.byref(blocks))
+    err = cuda_build.load().lfs_wave_blocks(
+        torch.cuda.current_device() if index is None else index, key.encode(), variant,
+        ctypes.byref(blocks))
     if err:
-        raise RuntimeError(f"occupancy query failed: cudaError {err}")
+        raise RuntimeError(f"lfs_wave_blocks ({key}, {variant}) failed: cudaError {err}")
     return blocks.value
 
 
-def wave_words(mode: str = "flagstat", device=None) -> int:
-    """Words one full wave of the kernel's blocks covers on ``device``
-    (beyond it the grid-stride loop turns)."""
-    from . import cuda_build
-
-    return wave_blocks(mode, device) * cuda_build.load().lfs_words_per_block()
+def wave_words(key: str = "flagstat", device=None) -> int:
+    """Words one full wave of a raw-word kernel's blocks covers on
+    ``device`` (beyond it the grid-stride loop turns): K1/K3/K5 by mode,
+    or K6 (``"words"``)."""
+    lib = cuda_build.load()
+    per_block = lib.lfs_words_block_words() if key == "words" else lib.lfs_words_per_block()
+    return wave_blocks(key, device) * per_block
 
 
 # ---- K2: the kernel over host-pretransposed plane tiles ----
@@ -435,8 +456,9 @@ def stream_sums_pre_cuda(planes: torch.Tensor, report: bool = False,
     (ops/csrc/flagstat_pre_kernels.cu) or raises. A CPU tensor takes the
     plain version. No group count is padded: a CUDA block takes one
     group per turn of its loop, and zero tiles count nothing. ``blocks``
-    as for stream_sums_cuda (one wave: ``pre_wave_groups``), and ``out``
-    and ``zero`` too."""
+    as for stream_sums_cuda (one wave, which is the groups it covers:
+    ``wave_blocks("pre" or "pre_report", device, rows)``), and ``out`` and
+    ``zero`` too."""
     with launch_span("pre_report" if report else "pre", planes):
         blocks = _check_blocks(blocks)
         planes32, rows = _check_planes(planes, report, packed)
@@ -451,35 +473,10 @@ def stream_sums_pre_cuda(planes: torch.Tensor, report: bool = False,
         mode = "flagstat_report" if report else "flagstat"
         out, zero = accumulator(out, zero, N_STREAMS[mode], planes.device)
         groups = planes.shape[0]
-        from . import cuda_build
-
-        lib = cuda_build.load()
-        with torch.cuda.device(planes.device):
-            stream = torch.cuda.current_stream().cuda_stream
-            err = lib.lfs_stream_sums_pre(_MODE_ID[mode], len(rows), planes32.data_ptr(),
-                                          groups, out.data_ptr(), blocks, zero, stream)
-        if err:
-            raise RuntimeError(f"stream_sums_pre kernel ({mode}, {len(rows)} rows) "
-                               f"failed: cudaError {err}")
-        if groups:
-            LAUNCHES["pre_report" if report else "pre"] += 1
+        launch("lfs_stream_sums_pre", "pre_report" if report else "pre", planes.device,
+               _MODE_ID[mode], len(rows), planes32.data_ptr(), groups, out.data_ptr(), blocks,
+               zero, ran=groups > 0)
         return out
-
-
-def pre_wave_groups(report: bool = False, packed: bool = False, device=None) -> int:
-    """Groups one full wave of K2's blocks covers on ``device`` (a block
-    takes one group per turn of its grid-stride loop)."""
-    mode = "flagstat_report" if report else "flagstat"
-    rows = len(packed_rows_for(report)) if packed else REGS
-    from . import cuda_build
-
-    lib = cuda_build.load()
-    blocks = ctypes.c_int(0)
-    with torch.cuda.device(device):
-        err = lib.lfs_pre_wave_blocks(_MODE_ID[mode], rows, ctypes.byref(blocks))
-    if err:
-        raise RuntimeError(f"occupancy query failed: cudaError {err}")
-    return blocks.value
 
 
 def _sums_to_streams(sums: torch.Tensor, report: bool) -> tuple[torch.Tensor, torch.Tensor]:
@@ -547,11 +544,9 @@ def _map_arg(kind: str):
     """The ctypes ``EpilogueMap`` of ``kind``, built once."""
     arg = _MAP_ARGS.get(kind)
     if arg is None:
-        from .cuda_build import EpilogueMap
-
         row = ctypes.c_int8 * F.N_BITS
-        arg = _MAP_ARGS[kind] = EpilogueMap(*(row(*m) for m in epilogue_map(kind)),
-                                            F.FQCFAIL_OFF)
+        arg = _MAP_ARGS[kind] = cuda_build.EpilogueMap(
+            *(row(*m) for m in epilogue_map(kind)), F.FQCFAIL_OFF)
     return arg
 
 
@@ -571,18 +566,10 @@ def epilogue_cuda(acc: torch.Tensor, kind: str, n=None, out: torch.Tensor | None
             raise ValueError(f"a {kind} accumulator holds {RAW_STREAMS[kind]} sums, "
                              f"got {acc.numel()}")
         out, _ = accumulator(out, False, F.N_COUNTERS, acc.device)
-        from . import cuda_build
-
-        lib = cuda_build.load()
-        with torch.cuda.device(acc.device):
-            stream = torch.cuda.current_stream().cuda_stream
-            err = lib.lfs_epilogue(acc.data_ptr(), out.data_ptr(), _map_arg(kind),
-                                   0 if n is None else int(n), n is not None,
-                                   None if host is None else host.data_ptr(),
-                                   None if done is None else done.cuda_event, stream)
-        if err:
-            raise RuntimeError(f"epilogue kernel ({kind}) failed: cudaError {err}")
-        LAUNCHES["epilogue"] += 1
+        launch("lfs_epilogue", "epilogue", acc.device, acc.data_ptr(), out.data_ptr(),
+               _map_arg(kind), 0 if n is None else int(n), n is not None,
+               None if host is None else host.data_ptr(),
+               None if done is None else done.cuda_event)
         return out
 
 
@@ -633,13 +620,6 @@ def counters_cuda(acc: torch.Tensor, kind: str, n, timer=None) -> np.ndarray:
         return s.host_np.astype(np.uint64)
 
 
-def raw_stream(dev: torch.device) -> int:
-    """The handle of ``dev``'s current CUDA stream, taken at each call (a
-    caller's ``torch.cuda.stream(...)`` holds), with no Stream object
-    made."""
-    return torch._C._cuda_getCurrentRawStream(dev.index)
-
-
 def flagstat_count(dev: torch.device, mode: str, words: int, n: int, src: int | None = None,
                    consumed=None) -> np.ndarray:
     """The 32 counters of one piece of ``n`` words, counted on the CUDA
@@ -657,34 +637,14 @@ def flagstat_count(dev: torch.device, mode: str, words: int, n: int, src: int | 
     n = 0) and one of the epilogue in ``LAUNCHES``."""
     s = scratch(dev)
     acc, out, host, done = s.ptrs
-    from . import cuda_build
-
     with profiling.span("lfs.launch", mode=mode, words=n) if n else profiling.NOOP:
-        err = cuda_build.load().lfs_flagstat_count(
-            dev.index, _MODE_ID[mode], src, n, words, acc, out, _map_arg(mode), host,
-            None if consumed is None else consumed.cuda_event, done, raw_stream(dev))
-    if err:
-        raise RuntimeError(f"one-call count ({mode}) failed: cudaError {err}")
-    if n:
-        LAUNCHES[mode] += 1
+        launch("lfs_flagstat_count", mode, dev, _MODE_ID[mode], src, n, words, acc, out,
+               _map_arg(mode), host, None if consumed is None else consumed.cuda_event, done,
+               ran=n > 0)
     LAUNCHES["epilogue"] += 1
     with profiling.span("lfs.readback"):
         s.done.synchronize()
         return s.host_np.astype(np.uint64)
-
-
-def cached_wave_blocks(mode: str, dev: torch.device) -> int:
-    """The grid ``flagstat_count`` gives ``mode`` (``"flagstat"`` or
-    ``"flagstat_report"``) on the CUDA device ``dev``: one wave, queried
-    at its first use there and kept; equal to ``wave_blocks``."""
-    from . import cuda_build
-
-    blocks = ctypes.c_int(0)
-    err = cuda_build.load().lfs_cached_wave_blocks(dev.index, _MODE_ID[mode],
-                                                   ctypes.byref(blocks))
-    if err:
-        raise RuntimeError(f"occupancy query failed: cudaError {err}")
-    return blocks.value
 
 
 def host_counts(t: torch.Tensor, timer=None) -> np.ndarray:
@@ -694,19 +654,26 @@ def host_counts(t: torch.Tensor, timer=None) -> np.ndarray:
         return t.cpu().numpy().astype(np.uint64)
 
 
+def counters_of(acc: torch.Tensor, kind: str, n) -> torch.Tensor:
+    """The 32 counters of ``n`` words from an accumulator of ``kind``,
+    on its device -> (32,) int64: the epilogue kernel on a card
+    (``epilogue_cuda``), its plain twin ``epilogue_plain`` on the CPU;
+    span ``lfs.assemble`` either way."""
+    if acc.device.type == "cuda":
+        return epilogue_cuda(acc, kind, n)
+    with profiling.span("lfs.assemble"):
+        return epilogue_plain(acc, kind, n)
+
+
 def flagstat_cuda(x: torch.Tensor, n=None, report: bool = False) -> torch.Tensor:
     """Flagstat counters of a uint16 word tensor -> (32,) int64, on its
-    device: on a CUDA tensor K1 (K3) and the epilogue kernel, on a CPU
-    tensor the plain versions.
+    device: K1 (K3) and the epilogue, on a CPU tensor their plain
+    versions.
 
     ``report=True`` counts the 21 report streams and leaves counters
     1, 3, 4, 5 and 17, 19, 20, 21 at 0."""
     mode = "flagstat_report" if report else "flagstat"
-    sums = stream_sums_cuda(x, mode)
-    n = x.numel() if n is None else n
-    if sums.device.type == "cuda":
-        return epilogue_cuda(sums, mode, n)
-    return assemble_counters(*_sums_to_streams(sums, report), n)
+    return counters_of(stream_sums_cuda(x, mode), mode, x.numel() if n is None else n)
 
 
 def flagstat_cuda_pre(planes: torch.Tensor, n: int, report: bool = False,
@@ -715,15 +682,8 @@ def flagstat_cuda_pre(planes: torch.Tensor, n: int, report: bool = False,
     stream_sums_pre_cuda) -> (32,) int64, as flagstat_cuda. ``n`` is the
     true (pre-padding) word count for the derived pass-total (reference:
     libflagstats.h:429)."""
-    sums = stream_sums_pre_cuda(planes, report, packed)
-    if sums.device.type == "cuda":
-        return epilogue_cuda(sums, "flagstat_report" if report else "flagstat", n)
-    return assemble_counters(*_sums_to_streams(sums, report), n)
-
-
-def flagstat_cuda_report(x: torch.Tensor, n=None) -> torch.Tensor:
-    """The report-counter instantiation of flagstat_cuda."""
-    return flagstat_cuda(x, n, report=True)
+    return counters_of(stream_sums_pre_cuda(planes, report, packed),
+                       "flagstat_report" if report else "flagstat", n)
 
 
 def pospopcnt_u16_cuda(x: torch.Tensor) -> torch.Tensor:

@@ -13,10 +13,10 @@ asks with K8 what the rows a kernel leaves unread cost.
 
 * ``read_xor_cuda``, ``transpose_xor_cuda``, ``transform_xor_pre_cuda``,
   ``stream_sums_raw_cuda`` and ``fold_xor_cuda`` launch the hand-written
-  sm_90a kernels (ops/csrc/flagstat_probe_kernels.cu) on a CUDA tensor,
-  count their launches in ``kernels.LAUNCHES``, and take the plain
-  version only for a tensor on the CPU. A CUDA tensor a kernel does not
-  take raises.
+  sm_90a kernels (ops/csrc/flagstat_probe_kernels.cu) on a CUDA tensor
+  through ``kernels.launch``, which counts them in ``kernels.LAUNCHES``,
+  and take the plain version only for a tensor on the CPU. A CUDA tensor
+  a kernel does not take raises.
 * ``*_plain`` compute the same functions in torch, on CPU and CUDA
   tensors alike, by the rules of the port's other plain versions (int32
   lanes holding uint32 bits, masked ``>>``, SWAR popcount).
@@ -42,8 +42,8 @@ import torch
 
 from .. import flags as F
 from . import bitslice as B
-from .kernels import (GROUP_WORDS, LANE, LAUNCHES, REGS, SUB, SUB16, _check_planes,
-                      _popcount32, _transpose32, check_cuda_words)
+from .kernels import (GROUP_WORDS, LANE, REGS, SUB, SUB16, _check_planes, _popcount32,
+                      _transpose32, check_cuda_words, launch)
 from .torch_ops import as_words
 
 #: groups per chunk of the plain versions (32Mi words, ~0.5 GB of
@@ -165,8 +165,7 @@ def read_xor_cuda(x: torch.Tensor) -> torch.Tensor:
         return read_xor_plain(x)
     out = torch.zeros(1, dtype=torch.int32, device=x.device)
     if x.numel():
-        _launch("lfs_read_xor", x, x.data_ptr(), x.numel(), out.data_ptr())
-        LAUNCHES["read_xor"] += 1
+        launch("lfs_read_xor", "read_xor", x.device, x.data_ptr(), x.numel(), out.data_ptr())
     return out
 
 
@@ -200,8 +199,8 @@ def transpose_xor_cuda(x: torch.Tensor, repeat: int = 1) -> torch.Tensor:
         return transpose_xor_plain(x, repeat)
     out = torch.zeros(1, dtype=torch.int32, device=x.device)
     if x.numel():
-        _launch("lfs_transpose_xor", x, x.data_ptr(), x.numel(), repeat, out.data_ptr())
-        LAUNCHES["transpose_xor"] += 1
+        launch("lfs_transpose_xor", "transpose_xor", x.device, x.data_ptr(), x.numel(), repeat,
+               out.data_ptr())
     return out
 
 
@@ -239,9 +238,8 @@ def transform_xor_pre_cuda(planes: torch.Tensor, repeat: int = 1) -> torch.Tenso
         return transform_xor_pre_plain(planes, repeat)
     out = torch.zeros(1, dtype=torch.int32, device=planes.device)
     if planes.shape[0]:
-        _launch("lfs_transform_xor", planes, planes.data_ptr(), planes.shape[0], repeat,
-                out.data_ptr())
-        LAUNCHES["transform_xor"] += 1
+        launch("lfs_transform_xor", "transform_xor", planes.device, planes.data_ptr(),
+               planes.shape[0], repeat, out.data_ptr())
     return out
 
 
@@ -279,8 +277,8 @@ def stream_sums_raw_cuda(planes: torch.Tensor, repeat: int = 1) -> torch.Tensor:
     if groups == 0:
         return out
     _check_raw_repeat(groups, repeat)
-    _launch("lfs_stream_sums_raw", planes, planes.data_ptr(), groups, repeat, out.data_ptr())
-    LAUNCHES["raw"] += 1
+    launch("lfs_stream_sums_raw", "raw", planes.device, planes.data_ptr(), groups, repeat,
+           out.data_ptr())
     return out
 
 
@@ -349,9 +347,8 @@ def fold_xor_cuda(planes: torch.Tensor, rows=None) -> torch.Tensor:
         raise ValueError("the kernel needs 16-byte aligned plane tiles")
     out = torch.zeros(1, dtype=torch.int32, device=planes.device)
     if planes.shape[0] and chosen:
-        _launch("lfs_fold_xor", planes, planes.data_ptr(), planes.shape[0], planes.shape[1],
-                _row_mask(chosen), out.data_ptr())
-        LAUNCHES["fold_xor"] += 1
+        launch("lfs_fold_xor", "fold_xor", planes.device, planes.data_ptr(), planes.shape[0],
+               planes.shape[1], _row_mask(chosen), out.data_ptr())
     return out
 
 
@@ -413,7 +410,7 @@ def stream_sums_raw_np(pospopcnt: np.ndarray, repeat: int = 1) -> np.ndarray:
     return out * repeat
 
 
-# ---- launch plumbing ----
+# ---- the plane tiles a probe kernel takes ----
 
 def _check_cuda_planes(planes, align: int) -> bool:
     """True for (G, 32, 8, 128) tiles on the CPU; False for tiles a probe
@@ -428,14 +425,3 @@ def _check_cuda_planes(planes, align: int) -> bool:
     if planes.data_ptr() % align:
         raise ValueError(f"the kernel needs {align}-byte aligned plane tiles")
     return False
-
-
-def _launch(name: str, t: torch.Tensor, *args) -> None:
-    from . import cuda_build
-
-    lib = cuda_build.load()
-    with torch.cuda.device(t.device):
-        err = getattr(lib, name)(*args, torch.cuda.current_stream().cuda_stream)
-    if err:
-        raise RuntimeError(f"{name} failed: cudaError {err}")
-

@@ -39,7 +39,7 @@ import torch
 
 from . import dispatch as D
 from . import native_host
-from .kernels import LAUNCHES, _popcount32
+from .kernels import _popcount32, launch
 
 SETOP_IMPLS = ("cuda", "torch", "native")
 #: lanes per pass of the plain version (64 MiB of input, ~0.5 GB of
@@ -109,16 +109,8 @@ def setop_count_cuda(a: torch.Tensor, b, op: str) -> torch.Tensor:
         raise ValueError(f"the kernel runs on CUDA tensors, got {a.device}")
     out = torch.zeros(1, dtype=torch.int64, device=a.device)
     if a.numel():
-        from . import cuda_build
-
-        lib = cuda_build.load()
-        with torch.cuda.device(a.device):
-            err = lib.lfs_setop_count_cuda(
-                native_host.SETOP_IDS[op], a.data_ptr(), None if b is None else b.data_ptr(),
-                a.numel(), out.data_ptr(), torch.cuda.current_stream().cuda_stream)
-        if err:
-            raise RuntimeError(f"setop_count kernel ({op}) failed: cudaError {err}")
-        LAUNCHES["setop"] += 1
+        launch("lfs_setop_count_cuda", "setop", a.device, native_host.SETOP_IDS[op],
+               a.data_ptr(), None if b is None else b.data_ptr(), a.numel(), out.data_ptr())
     return out
 
 

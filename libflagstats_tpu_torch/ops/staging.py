@@ -36,7 +36,7 @@ from ..bench import profiling
 from . import kernels as K
 from .bitslice import pretranspose_host_packed
 from .torch_ops import assemble_counters, stream_sums_torch
-from .words_kernels import _pass_fail_to_streams, stream_sums_words_cuda
+from .words_kernels import stream_sums_words_cuda
 
 #: words a piece of a host column holds, and a ring slot's capacity: a
 #: multiple of K.GROUP_WORDS, so a ``cuda_pre`` piece is whole transpose
@@ -175,9 +175,10 @@ class Tally:
     int64 accumulator in place, the launcher zeroing it before the first
     piece, and the epilogue kernel turns it into (C[k], F[k]) or the 32
     counters: no torch op between launches, one wait at the readback. On
-    the CPU the kernels' plain versions add into the accumulator, and
-    ``_sums_to_streams`` and ``assemble_counters`` finish; ``"torch"``
-    adds its (C[k], F[k]) pair with torch ops on any device. ``scratch``:
+    the CPU the kernels' plain versions add into the accumulator, and the
+    epilogue's plain twin on the same map finishes
+    (``kernels.epilogue_plain``); ``"torch"`` adds its (C[k], F[k]) pair
+    with torch ops on any device and ends in ``assemble_counters``. ``scratch``:
     on a card, use this thread's accumulator (``kernels.scratch``), for a
     count read back before the thread counts again."""
 
@@ -249,29 +250,31 @@ class Tally:
                 self.add(torch.empty(0, dtype=torch.int16, device=self.device))
 
     def streams(self):
-        """(C[k], F[k]), each (16,) int64 on the device, enqueued (on a
-        card the epilogue's first form); K5's (16,) sums."""
+        """(C[k], F[k]), each (16,) int64 on the device, enqueued: the
+        epilogue's first form (on the CPU its plain twin); K5's (16,)
+        sums."""
         self._settle()
         if self.impl == "pospopcnt":
             return self.acc
         if self.impl == "torch":
-            return self.acc[:F.N_BITS], self.acc[F.N_BITS:]
-        if self.card:
+            both = self.acc
+        elif self.card:
             both = K.epilogue_cuda(self.acc, self.kind)
-            return both[:F.N_BITS], both[F.N_BITS:]
-        if self.impl == "cuda_words":
-            return _pass_fail_to_streams(self.acc)
-        return K._sums_to_streams(self.acc, self.report)
+        else:
+            both = K.epilogue_plain(self.acc, self.kind)
+        return both[:F.N_BITS], both[F.N_BITS:]
 
     def counters(self, n: int, timer=None) -> np.ndarray:
         """The 32 counters of the count's ``n`` words, on the host
-        (uint64): on a card the epilogue's second form, copied into this
+        (uint64): the epilogue's second form; on a card copied into this
         thread's pinned buffer, and one wait (span ``lfs.readback``;
         ``timer``'s section ``final_sync``)."""
         self._settle()
         if self.card:
             return K.counters_cuda(self.acc, self.kind, n, timer)
-        return K.host_counts(assemble_counters(*self.streams(), n), timer)
+        counts = (assemble_counters(*self.streams(), n) if self.impl == "torch"
+                  else K.counters_of(self.acc, self.kind, n))
+        return K.host_counts(counts, timer)
 
     def seed(self, total, fail) -> None:
         """Start from (C[k], F[k]) sums given on the host (a checkpoint's),

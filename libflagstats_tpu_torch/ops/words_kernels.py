@@ -34,14 +34,12 @@ adds those int64[30] counts into it instead and returns it.
 """
 from __future__ import annotations
 
-import ctypes
-
 import torch
 
 from .. import flags as F
-from .kernels import (LAUNCHES, _check_blocks, _csa, accumulator, add_plain, check_cuda_words,
-                      epilogue_cuda, launch_span)
-from .torch_ops import _ONE16, _transform_words_packed, as_words, assemble_counters
+from .kernels import (_check_blocks, _csa, accumulator, add_plain, check_cuda_words,
+                      counters_of, epilogue_cuda, epilogue_plain, launch, launch_span)
+from .torch_ops import _ONE16, _transform_words_packed, as_words
 
 BITS = 15          # transformed bit 15 is always 0
 LANES = 16         # int32 lanes (one word each) per HS-16 body
@@ -108,7 +106,12 @@ def stream_sums_words_plain(x) -> tuple[torch.Tensor, torch.Tensor]:
     """(C[k], F[k]) of a uint16 word stream by the kernel's algorithm, on
     the device the tensor lies on. Pads the last turn with zero words
     (entry 0 of the table is 0: they count nothing)."""
-    return _pass_fail_to_streams(_bit_counts_plain(x))
+    return _halves(epilogue_plain(_bit_counts_plain(x), "words"))
+
+
+def _halves(both: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """The epilogue's first form, (32,), as (C[k], F[k])."""
+    return both[:F.N_BITS], both[F.N_BITS:]
 
 
 def _bit_counts_plain(x) -> torch.Tensor:
@@ -169,14 +172,6 @@ def _bit_counts_plain(x) -> torch.Tensor:
     return counts
 
 
-def _pass_fail_to_streams(sums: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-    """int64[30] (pass bits 0-14, fail bits 0-14) -> (C[k], F[k]), each
-    (16,) with bit 15 at 0: the plain version of the epilogue's first
-    form (kind ``"words"``)."""
-    both = torch.nn.functional.pad(sums.view(2, BITS), (0, 1))
-    return both[0] + both[1], both[1]
-
-
 def stream_sums_words_cuda(x: torch.Tensor, blocks: int | None = None,
                            out: torch.Tensor | None = None, zero: bool = False):
     """(C[k], F[k]) through the CUDA kernel, each (16,) int64.
@@ -185,8 +180,8 @@ def stream_sums_words_cuda(x: torch.Tensor, blocks: int | None = None,
     this launches the kernel and the epilogue kernel, or raises; a CPU
     tensor takes the plain version. Any 2-byte aligned start is taken as
     it is. ``blocks`` as for ``kernels.stream_sums_cuda`` (one wave:
-    ``words_wave_blocks``); a grid far below one wave makes one thread
-    run many more bodies than FLUSH_BODIES. Given ``out``, an int64
+    ``kernels.wave_blocks("words")``); a grid far below one wave makes
+    one thread run many more bodies than FLUSH_BODIES. Given ``out``, an int64
     accumulator on ``x``'s device, the kernel's pass and fail bit counts
     (int64[30]) are added into it (``zero``: zeroed first, in the
     launcher) and it is returned, with no epilogue."""
@@ -197,50 +192,16 @@ def stream_sums_words_cuda(x: torch.Tensor, blocks: int | None = None,
                 return stream_sums_words_plain(x)
             return add_plain(out, _bit_counts_plain(x), zero)
         acc, zero = accumulator(out, zero, 2 * BITS, x.device)
-        from . import cuda_build
-
-        lib = cuda_build.load()
-        with torch.cuda.device(x.device):
-            stream = torch.cuda.current_stream().cuda_stream
-            err = lib.lfs_stream_sums_words(x.data_ptr(), x.numel(), acc.data_ptr(),
-                                            blocks, zero, stream)
-        if err:
-            raise RuntimeError(f"stream_sums_words kernel failed: cudaError {err}")
-        if x.numel():
-            LAUNCHES["words"] += 1
-    if out is not None:
-        return acc
-    both = epilogue_cuda(acc, "words")
-    return both[:F.N_BITS], both[F.N_BITS:]
-
-
-def words_wave_blocks(device=None) -> int:
-    """Blocks of K6 resident at once on ``device``: one full wave."""
-    from . import cuda_build
-
-    lib = cuda_build.load()
-    blocks = ctypes.c_int(0)
-    with torch.cuda.device(device):
-        err = lib.lfs_words_wave_blocks(ctypes.byref(blocks))
-    if err:
-        raise RuntimeError(f"occupancy query failed: cudaError {err}")
-    return blocks.value
-
-
-def words_wave_words(device=None) -> int:
-    """Words one full wave of K6's blocks covers on ``device`` (beyond
-    it the grid-stride loop turns)."""
-    from . import cuda_build
-
-    return words_wave_blocks(device) * cuda_build.load().lfs_words_block_words()
+        launch("lfs_stream_sums_words", "words", x.device, x.data_ptr(), x.numel(),
+               acc.data_ptr(), blocks, zero, ran=x.numel() > 0)
+    return acc if out is not None else _halves(epilogue_cuda(acc, "words"))
 
 
 def flagstat_cuda_words(x: torch.Tensor, n=None) -> torch.Tensor:
     """Flagstat counters of a uint16 word tensor through K6 -> (32,)
-    int64, on its device (on a CUDA tensor through the epilogue kernel).
-    ``n`` is the true word count for the derived pass total."""
-    n = x.numel() if n is None else n
-    if isinstance(x, torch.Tensor) and x.device.type == "cuda":
-        acc = torch.empty(2 * BITS, dtype=torch.int64, device=x.device)
-        return epilogue_cuda(stream_sums_words_cuda(x, out=acc, zero=True), "words", n)
-    return assemble_counters(*stream_sums_words_cuda(x), n)
+    int64, on its device: K6 and the epilogue, on a CPU tensor their
+    plain versions. ``n`` is the true word count for the derived pass
+    total."""
+    acc = torch.empty(2 * BITS, dtype=torch.int64, device=x.device)
+    return counters_of(stream_sums_words_cuda(x, out=acc, zero=True), "words",
+                       x.numel() if n is None else n)

@@ -53,8 +53,10 @@ def _configs(dev: torch.device) -> list:
                 wave(lambda d: K.wave_blocks(mode, d)), report, False)
 
     def k2(name, key, report, packed):
+        rows = len(K.packed_rows_for(report)) if packed else K.REGS
         return (name, key, lambda p, b: K.stream_sums_pre_cuda(p, report, packed, blocks=b),
-                wave(lambda d: K.pre_wave_groups(report, packed, d)), report, packed)
+                wave(lambda d: K.wave_blocks("pre_report" if report else "pre", d, rows)),
+                report, packed)
 
     return [
         k1("report", "flagstat_report", True),
@@ -64,7 +66,7 @@ def _configs(dev: torch.device) -> list:
         k2("pre_packed_report", "packed_report", True, True),
         k2("pre_packed_full", "packed_full", False, True),
         ("words", "x", lambda a, b: torch.cat(W.stream_sums_words_cuda(a, blocks=b)),
-         wave(W.words_wave_blocks), False, False),
+         wave(lambda d: K.wave_blocks("words", d)), False, False),
     ]
 
 

@@ -24,7 +24,6 @@ from libflagstats_tpu_torch.ops import bitslice as B
 from libflagstats_tpu_torch.ops import dispatch as D
 from libflagstats_tpu_torch.ops import kernels as K
 from libflagstats_tpu_torch.ops import staging as ST
-from libflagstats_tpu_torch.ops import words_kernels as W
 from libflagstats_tpu_torch.ops.torch_ops import assemble_counters
 from libflagstats_tpu_torch.oracle import flagstat_numpy, generate_flags
 
@@ -34,9 +33,12 @@ REPORT_ZEROS = [1, 3, 4, 5, 17, 19, 20, 21]
 
 
 def plain_streams(raw: torch.Tensor, kind: str):
-    """(C[k], F[k]) of a kind's raw sums by the plain versions."""
+    """(C[k], F[k]) of a kind's raw sums by the plain versions; K6's
+    built inline, C = pass + fail and F = fail, bit 15 at 0."""
     if kind == "words":
-        return W._pass_fail_to_streams(raw)
+        passed, fail = raw[:15], raw[15:]
+        return (torch.nn.functional.pad(passed + fail, (0, 1)),
+                torch.nn.functional.pad(fail, (0, 1)))
     return K._sums_to_streams(raw, kind == "flagstat_report")
 
 

@@ -486,7 +486,54 @@ def test_card_two_threads_count_at_once(cuda):
         np.testing.assert_array_equal(out, 3 * flagstat_numpy(x))
 
 
+#: every kernel the grid cache holds: (LAUNCHES key, variant)
+WAVE_KERNELS = ([(m, 0) for m in K.MODES] + [("pre", 32), ("pre", 24), ("pre_report", 32),
+                                              ("pre_report", 20), ("words", 0)]
+                + [(p, 0) for p in K.PROBES + ("fold_xor",)] + [("setop", op) for op in range(4)])
+
+
+def launch_grids(fn, dev, tmp_path) -> dict:
+    """{kernel name: [grid x of each launch]} of what ``fn`` enqueues on
+    ``dev``, from a profiler trace."""
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize(dev)
+    path = tmp_path / f"grids_{dev.index}.json"
+    prof.export_chrome_trace(str(path))
+    grids: dict = {}
+    for e in json.loads(path.read_text())["traceEvents"]:
+        if e.get("cat") == "kernel":
+            grids.setdefault(e["name"], []).append(e["args"]["grid"][0])
+    return grids
+
+
 @pytest.mark.card
-def test_card_cached_grid_is_the_queried_wave(cuda):
-    for mode in ("flagstat", "flagstat_report"):
-        assert K.cached_wave_blocks(mode, cuda) == K.wave_blocks(mode, cuda) > 0, mode
+def test_card_cached_grid_is_the_queried_wave(cuda, tmp_path):
+    """On every card present: every kernel's wave is SMs times its
+    resident blocks and reads the same each time; the launchers read
+    that cache, so K1 through its launcher and through the one-call
+    entry, K3 and K6 over more than a wave launch one wave of blocks."""
+    from libflagstats_tpu_torch.ops import words_kernels as W
+
+    for index in range(torch.cuda.device_count()):
+        dev = torch.device("cuda", index)
+        sms = torch.cuda.get_device_properties(dev).multi_processor_count
+        waves = {}
+        for key, variant in WAVE_KERNELS:
+            wave = waves[key, variant] = K.wave_blocks(key, dev, variant)
+            assert wave > 0 and wave % sms == 0, (dev, key, variant, wave)
+            assert K.wave_blocks(key, dev, variant) == wave
+        with pytest.raises(RuntimeError, match="lfs_wave_blocks"):
+            K.wave_blocks("no such kernel", dev)
+        x = torch.zeros(2 * max(K.wave_words(m, dev) for m in K.MODES + ("words",)) + 1,
+                        dtype=torch.int16, device=dev)
+        with torch.cuda.device(dev):
+            grids = launch_grids(lambda: (K.stream_sums_cuda(x, "flagstat"),
+                                          K.stream_sums_cuda(x, "flagstat_report"),
+                                          W.stream_sums_words_cuda(x),
+                                          L.flagstats_u16(x)), dev, tmp_path)
+        k1 = [g for name, gs in grids.items() if "stream_sums_kernel" in name for g in gs]
+        k6 = [g for name, gs in grids.items() if "stream_sums_words_kernel" in name for g in gs]
+        assert sorted(k1) == sorted([waves["flagstat", 0]] * 2 + [waves["flagstat_report", 0]]), \
+            grids
+        assert k6 == [waves["words", 0]], grids
