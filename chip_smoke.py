@@ -34,7 +34,9 @@ of libflagstats_tpu.
 
 Each ported path is driven with the launch counts set to 0 just before
 it and read just after: phase 4 (a-d) the in-memory entry points, phase
-4 (e, f) the streaming device path, phase 4g the word-space impl, phase
+4 (e, f) the streaming device path (with the LZ4 decode kernel on the
+NA12878 frames, in a process of its own, and where each impl and codec
+decodes: ``stream.CARD_DECODE``), phase 4g the word-space impl, phase
 4h the data-parallel path (its workers report their own counts), phase
 4i the measurement path (the `kernels`, `instrumented` and `inmemory`
 subcommands, the stage decomposition and the scaling sweep), phase 4k
@@ -689,6 +691,90 @@ def check_stream(path, label: str, impl: str, report: bool, card: str, want_repo
             assert "decode" in timer.totals, (label, timer.totals)
 
 
+#: phase 4e's decode kernel check, run in a process of its own (one
+#: torch.profiler session a process, ROADMAP Queue C item 8): the NA12878
+#: column's 1,611 frames at LZ4-fast acceleration 2 (the benchmark's
+#: codec) decoded by the kernel in one launch, every frame bit-equal to
+#: the host decoder and every status its raw length; the launch's time by
+#: CUDA events (6 runs) and in a trace. Prints one JSON line.
+DECODE_CALL = """
+import json, os, tempfile
+import numpy as np, torch
+from torch.profiler import ProfilerActivity, profile
+from libflagstats_tpu_torch.datasets import synth_na12878
+from libflagstats_tpu_torch.io import codec as C
+from libflagstats_tpu_torch.io import stream as S
+from libflagstats_tpu_torch.ops import lz4_decode as Z
+with tempfile.TemporaryDirectory() as tmp:
+    path = os.path.join(tmp, "a2.lz4")
+    C.write_framed(path, synth_na12878(1)[0], "lz4", level=-1)
+    host = torch.from_numpy(C.read_framed(path, "lz4").view(np.uint8)).cuda()
+    src = S._FramedFile(path, "lz4")
+    try:
+        fr = np.array(src.frames, dtype=np.int64)
+        comp = torch.from_numpy(np.frombuffer(src.mm, dtype=np.uint8).copy()).cuda()
+    finally:
+        src.close()
+raw = np.concatenate([[0], np.cumsum(fr[:, 1])])
+table = torch.from_numpy(np.stack([fr[:, 0], fr[:, 2], raw[:-1], fr[:, 1]], 1)).cuda()
+out = torch.empty(int(raw[-1]), dtype=torch.uint8, device="cuda")
+status = torch.empty(len(fr), dtype=torch.int32, device="cuda")
+ms = []
+for _ in range(6):
+    out.fill_(0xA5)
+    status.fill_(-7)
+    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    a.record()
+    Z.decode_frames(comp, table, 0, len(fr), out, status)
+    b.record()
+    torch.cuda.synchronize()
+    ms.append(a.elapsed_time(b))
+    assert (status.cpu().numpy() == fr[:, 1]).all()
+    assert torch.equal(out, host)
+with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    Z.decode_frames(comp, table, 0, len(fr), out, status)
+    torch.cuda.synchronize()
+traced = sum(e.device_time_total for e in prof.key_averages() if "lz4_decode" in e.key)
+print(json.dumps({"frames": len(fr), "comp_bytes": comp.numel(), "raw_bytes": int(raw[-1]),
+                  "ms": ms, "traced_ms": traced / 1e3}))
+"""
+
+
+def check_card_decode(na_words: np.ndarray, path: str, tmp: str, want_report, card: str) -> None:
+    """Phase 4e: the stream's LZ4 decode on the card. The kernel alone on
+    the NA12878 frames at acceleration 2 (DECODE_CALL), its time beside
+    its byte bound; then where the frames of a stream are decoded
+    (``stream.CARD_DECODE``): on the card for the default impl of an LZ4
+    file, on the host for ``cuda_pre`` and for a Zstd file."""
+    r = subprocess.run([sys.executable, "-c", DECODE_CALL], cwd=REPO, capture_output=True,
+                       text=True, timeout=600)
+    assert r.returncode == 0, r.stderr[-4000:]
+    got = json.loads(r.stdout.strip().splitlines()[-1])
+    bound = (got["comp_bytes"] + got["raw_bytes"]) / 3.35e12 * 1e3
+    print(f"[{card}] decode kernel, NA12878 at LZ4-fast a2: {got['frames']} frames, "
+          f"{got['comp_bytes']} -> {got['raw_bytes']} bytes in one launch: "
+          f"{statistics.median(got['ms']):.3f} ms (median of 6; least {min(got['ms']):.3f}; "
+          f"traced {got['traced_ms']:.3f}) against the bytes' bound {bound:.3f} ms at 3.35 TB/s; "
+          f"every frame bit-equal to the host decoder")
+    src = S._FramedFile(path, "lz4")
+    n = len(src.frames)
+    src.close()
+    zst = os.path.join(tmp, "na12878.zst")
+    C.write_framed(zst, na_words, "zstd", level=1)
+    for label, file, codec, impl, card_frames in (
+            ("lz4 default", path, "lz4", None, n), ("lz4 cuda report", path, "lz4", "cuda", n),
+            ("lz4 cuda_pre", path, "lz4", "cuda_pre", 0), ("zstd default", zst, "zstd", None, 0)):
+        before = dict(S.CARD_DECODE)
+        c = L.flagstat_stream(file, codec, impl=impl, report=label.endswith("report"))
+        moved = {k: S.CARD_DECODE[k] - before[k] for k in before}
+        if not label.endswith("report"):
+            assert L.counters_to_report(c) == want_report, label
+        assert moved["card_frames"] == card_frames and moved["host_frames"] == n - card_frames, \
+            (label, moved)
+        print(f"[{card}] stream.CARD_DECODE, {label}: {moved}")
+    os.remove(zst)
+
+
 def drive_stream_path(na_words: np.ndarray, card: str, tmp: str) -> str:
     """Phase 4 (e, f): the streaming device path at full width. Leaves
     the NA12878 LZ4 file in ``tmp`` and returns its path."""
@@ -719,6 +805,7 @@ def drive_stream_path(na_words: np.ndarray, card: str, tmp: str) -> str:
     print("main path (f): flagstat_stream over the NA12878 LZ4 file: cuda_pre, "
           "cuda_pre report=True, cuda, the default (cuda) and native reports = "
           "na12878_report_values(1)")
+    check_card_decode(na_words, path, tmp, want_report, card)
     # CONFIG.stream_chunk_words beside its default, and fewer decode
     # calls in flight than stream.DECODE_CALLS: one cuda run each
     calls = S.DECODE_CALLS
@@ -2346,7 +2433,8 @@ def main(argv=None) -> int:
                 na_path = drive_stream_path(na12878(), card, tmp)
             stream_launches = dict(K.LAUNCHES)
             print(f"streaming-path launches (phase 4 e-f): {stream_launches}")
-            assert all(stream_launches[m] > 0 for m in K.PRE_MODES), stream_launches
+            assert all(stream_launches[m] > 0 for m in K.PRE_MODES + ("lz4_decode",)), \
+                stream_launches
 
         if "4g" in run:
             zero_launches()
@@ -2373,9 +2461,10 @@ def main(argv=None) -> int:
                 drive_measurement_path()
             measure_launches = dict(K.LAUNCHES)
             print(f"measurement-path launches (phase 4i): {measure_launches}")
-            # every kernel but the fold, which only the tools path launches
-            assert all(v > 0 for m, v in measure_launches.items() if m != "fold_xor"), \
-                measure_launches
+            # every kernel but the fold, which only the tools path launches, and
+            # the LZ4 decode, which only the streaming path launches
+            assert all(v > 0 for m, v in measure_launches.items()
+                       if m not in ("fold_xor", "lz4_decode")), measure_launches
 
         if "4j" in run:
             zero_launches()

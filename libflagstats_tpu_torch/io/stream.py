@@ -12,7 +12,13 @@ the host decodes the next runs. For
 ``impl="cuda_pre"`` a run is decoded into a host staging buffer instead,
 and a 2-thread stage bit-transposes it into packed plane tiles (24
 rows, 20 in report mode) written straight into a pinned slot, so that
-decode(i+2), transpose(i+1) and copy+count(i) overlap. Each run's
+decode(i+2), transpose(i+1) and copy+count(i) overlap. An LZ4 file
+counted by ``impl="cuda"`` on a CUDA device is decoded on the card
+instead (``_count_frames_card``): the host only copies each run's
+compressed bytes into a slot, the slot is shipped into a device buffer
+of the call's compressed bytes, and one launch of the decode kernel
+(``ops/lz4_decode.py``) takes every frame landed since the last, some
+hundreds at once, before K1 or K3 counts their words. Each run's
 kernel adds its sums into one accumulator on the device in place
 (``ops/staging.Tally``); only the final 32 counters come back, written
 by the epilogue kernel into a pinned host buffer (reference
@@ -39,6 +45,7 @@ are counted and checkpointed.
 from __future__ import annotations
 
 import concurrent.futures as cf
+import contextlib
 import ctypes
 import mmap
 import os
@@ -57,6 +64,7 @@ from ..ops import dispatch as D
 from ..ops import kernels as K
 from ..ops import native_host
 from ..ops.bitslice import pretranspose_host_packed
+from ..ops.lz4_decode import decode_frames
 from ..ops.staging import Tally, _Ring
 from . import codec as C
 from . import native_lib
@@ -70,6 +78,27 @@ DEVICE_IMPLS = ("torch", "cuda", "cuda_pre")
 DECODE_CALLS = 4
 #: runs in the transpose stage at once (``cuda_pre``)
 PRE_WINDOW = 2
+#: frames a decode launch of the card path waits for, for each SM of the
+#: card: one launch of fewer leaves the card's SMs to a few serial chains
+#: (PERF.md §6). It fires sooner at the end of the stream, before a
+#: checkpoint, and when DECODE_WORDS would overflow
+FRAMES_PER_SM = 3
+#: words the card path decodes into (2 GiB, or the call's when fewer):
+#: each launch writes after the last, and a launch that would run past its
+#: end starts it again once the counts before have read it
+DECODE_WORDS = 1 << 30
+#: decode launches of the card path that run at once, each on a stream of
+#: its own: a launch takes about as long for a few frames as for many
+#: (PERF.md §6), so the last one need not wait for the one before
+DECODE_STREAMS = 2
+#: compressed bytes the card path holds on the card at once (1 GiB, or
+#: the call's when fewer; a longer stream refills it from its start once
+#: the frames in it have decoded)
+SEGMENT_BYTES = 1 << 30
+#: where the device stream's frames were decoded: "card_frames" by the
+#: decode kernel (on the CPU its plain version), "host_frames" on the host
+#: (a run decoded into a ring slot), and the decode kernel's "launches"
+CARD_DECODE = {"card_frames": 0, "host_frames": 0, "launches": 0}
 
 
 def _decoded_blocks(path, codec, n_threads, start_block, timer):
@@ -210,26 +239,38 @@ class _FramedFile:
         cold file faults one page at a time."""
         if start >= stop or not hasattr(self.mm, "madvise"):
             return
-        lo = (self.frames[start][0] - 8) // mmap.PAGESIZE * mmap.PAGESIZE
-        hi = self.frames[stop - 1][0] + self.frames[stop - 1][2]
+        lo, hi = self.bounds(start, stop)
+        lo = lo // mmap.PAGESIZE * mmap.PAGESIZE
         self.mm.madvise(mmap.MADV_SEQUENTIAL)
         self.mm.madvise(mmap.MADV_WILLNEED, lo, hi - lo)
 
-    def runs(self, start: int, stop: int, chunk_words: int, every: int = 0):
+    def runs(self, start: int, stop: int, chunk_words: int, every: int = 0,
+             max_bytes: int = 0):
         """Runs [a, b) of whole frames over [start, stop): as many as fit
-        in ``chunk_words`` words, or one frame when it alone is larger.
-        No run crosses a block index that is a multiple of ``every``
-        (when nonzero), so a checkpoint can be saved after any run that
-        ends on one."""
+        in ``chunk_words`` words (and, when nonzero, in ``max_bytes``
+        bytes of the file, headers included), or one frame when it alone
+        is larger. No run crosses a block index that is a multiple of
+        ``every`` (when nonzero), so a checkpoint can be saved after any
+        run that ends on one."""
         a = start
         while a < stop:
             b, words = a + 1, self.frames[a][1] // 2
             while (b < stop and words + self.frames[b][1] // 2 <= chunk_words
+                   and not (max_bytes and self.span(a, b + 1) > max_bytes)
                    and not (every and b % every == 0)):
                 words += self.frames[b][1] // 2
                 b += 1
             yield a, b
             a = b
+
+    def bounds(self, a: int, b: int) -> tuple[int, int]:
+        """The file's bytes [lo, hi) of frames [a, b), headers included."""
+        return self.frames[a][0] - 8, self.frames[b - 1][0] + self.frames[b - 1][2]
+
+    def span(self, a: int, b: int) -> int:
+        """Bytes of the file frames [a, b) take, headers included."""
+        lo, hi = self.bounds(a, b)
+        return hi - lo
 
     def decode(self, a: int, b: int, out: np.ndarray, n_threads: int) -> int:
         """Decode frames [a, b) into the start of ``out`` (uint16) -> the
@@ -248,17 +289,21 @@ class _FramedFile:
                 out[pos:pos + raw_len // 2] = np.frombuffer(block, dtype=np.uint16)
                 pos += raw_len // 2
             return pos
-        lo = frames[0][0] - 8
-        hi = frames[-1][0] + frames[-1][2]
+        lo, hi = self.bounds(a, b)
         # the binding's stream argument is c_char_p: pass the mapping's
         # address as one, so ctypes copies nothing
         r = lib.lfs_decode_stream(ctypes.cast(self.addr + lo, ctypes.c_char_p), hi - lo,
                                   out.ctypes.data, out.nbytes, self.codec, n_threads)
         if r != raw:
-            for off, raw_len, comp_len in frames:
-                C.decompress_block(self.mm[off:off + comp_len], raw_len, self.codec)
-            raise RuntimeError("framed stream decode failed")
+            self.fail(a, b)
         return raw // 2
+
+    def fail(self, a: int, b: int) -> None:
+        """Raise what ``codec.decompress_block`` raises for the first of
+        frames [a, b) it rejects (RuntimeError when it takes them all)."""
+        for off, raw_len, comp_len in self.frames[a:b]:
+            C.decompress_block(self.mm[off:off + comp_len], raw_len, self.codec)
+        raise RuntimeError("framed stream decode failed")
 
     def close(self) -> None:
         self._bytes = None   # release the buffer export before the mapping closes
@@ -314,7 +359,11 @@ def _count_frames(src: _FramedFile, sums: _Sums, stop: int, impl: str, chunk_wor
     share of the ``n_threads`` decode threads. Saves ``checkpoint`` after
     each run that ends on its block interval, with nothing of the runs
     before it in flight; rolls the epoch before a run that would take it
-    past ``cap`` words."""
+    past ``cap`` words. Where the card decodes (``_card_decodes``), the
+    runs go to ``_count_frames_card`` instead."""
+    if _card_decodes(src.codec, impl, sums.tally.device):
+        _count_frames_card(src, sums, stop, 2 * chunk_words, n_threads, timer, checkpoint, cap)
+        return
     pre = impl == "cuda_pre"
     start = sums.block
     every = checkpoint.every_blocks if checkpoint is not None else 0
@@ -378,10 +427,11 @@ def _count_frames(src: _FramedFile, sums: _Sums, stop: int, impl: str, chunk_wor
     def finish():
         """Take the oldest run in decode on to the count (a failed decode
         raises here, after every run before it is counted)."""
-        fut, b, slot, buf = decoding.popleft()
+        fut, a, b, slot, buf = decoding.popleft()
         with profiling.span("lfs.stream.decode_wait", timer):
             words, seconds = fut.result()
         timer.add("decode", seconds)
+        CARD_DECODE["host_frames"] += b - a
         if pre:
             g = -(-words // K.GROUP_WORDS)
             buf[words:g * K.GROUP_WORDS] = 0   # the tail pads with zero words
@@ -409,7 +459,7 @@ def _count_frames(src: _FramedFile, sums: _Sums, stop: int, impl: str, chunk_wor
             else:
                 slot = ring.acquire(timer)
                 buf = ring.host_np[slot]
-            decoding.append((dpool.submit(decode, a, b, buf), b, slot, buf))
+            decoding.append((dpool.submit(decode, a, b, buf), a, b, slot, buf))
             if len(decoding) == calls:
                 finish()
         while decoding:
@@ -420,6 +470,201 @@ def _count_frames(src: _FramedFile, sums: _Sums, stop: int, impl: str, chunk_wor
         dpool.shutdown(cancel_futures=True)
         if xpool is not None:
             xpool.shutdown()
+        ring.close()
+
+
+def _card_decodes(codec: int, impl: str, dev: torch.device) -> bool:
+    """Whether the card decodes the device stream's frames: an LZ4 file
+    counted by K1 or K3 (``impl="cuda"``) on a CUDA device. Every other
+    codec, impl and device decodes on the host."""
+    return codec == C.CODEC_LZ4 and impl == "cuda" and dev.type == "cuda"
+
+
+def _sms(dev: torch.device) -> int:
+    """The SMs of the CUDA device ``dev``; 1 for the CPU, where the plain
+    version decodes."""
+    return torch.cuda.get_device_properties(dev).multi_processor_count if dev.type == "cuda" \
+        else 1
+
+
+def _count_frames_card(src: _FramedFile, sums: _Sums, stop: int, slot_bytes: int,
+                       n_threads: int, timer, checkpoint=None, cap: int | None = None) -> None:
+    """Count frames [sums.block, stop) of the LZ4 file ``src`` into
+    ``sums`` (K1, or K3 in report mode), the card decoding them.
+
+    The host's part of a run (whole frames of at most ``slot_bytes``
+    bytes of the file, or one frame) is a copy of its bytes from the
+    mapping into a ring slot, in parts on the ``n_threads`` decode
+    threads, up to DECODE_CALLS runs at once (span ``lfs.stream.decode``,
+    section ``decode``). In stream order each run is shipped on the side
+    stream into a device buffer of the call's bytes (at most
+    SEGMENT_BYTES at once), at the run's offset; its slot is free again
+    when that copy completes. Once FRAMES_PER_SM frames an SM have landed
+    and as many are still to come, or at the end, before a checkpoint, or
+    before DECODE_WORDS would overflow, one decode launch takes every
+    frame landed since the last, on the next of DECODE_STREAMS streams,
+    into a buffer of words after the last launch's; the compute stream
+    waits for it, and one K1/K3 launch a piece within the epoch's ``cap``
+    counts them (span ``lfs.stream.dispatch``). The statuses are read
+    back before each checkpoint and at the end (span ``lfs.readback``);
+    the first frame that failed is decoded again on the host, and its
+    error raised, after the frames before it are counted and
+    checkpointed."""
+    start = sums.block
+    if start >= stop:
+        return
+    dev = sums.tally.device
+    every = checkpoint.every_blocks if checkpoint is not None else 0
+    calls = min(DECODE_CALLS, n_threads)
+    base = src.frames[start][0] - 8
+    # frame i of the call: (payload offset, raw bytes, compressed bytes)
+    frames = np.array(src.frames[start:stop], dtype=np.int64).reshape(-1, 3)
+    raw = np.zeros(len(frames) + 1, dtype=np.int64)   # raw bytes before frame i
+    np.cumsum(frames[:, 1], out=raw[1:])
+    words_before = raw // 2
+    runs = list(src.runs(start, stop, DECODE_WORDS, every, slot_bytes))
+    widest = max(src.span(a, b) for a, b in runs)
+    seg_cap = max(min(SEGMENT_BYTES, src.span(start, stop)), widest)
+    comp = torch.empty(seg_cap, dtype=torch.uint8, device=dev)
+    words = torch.empty(max(min(DECODE_WORDS, int(words_before[-1])),
+                            max(int(words_before[b - start] - words_before[a - start])
+                                for a, b in runs)), dtype=torch.int16, device=dev)
+    table = torch.from_numpy(np.stack([frames[:, 0] - base, frames[:, 2], raw[:-1],
+                                       frames[:, 1]], axis=1)).to(dev)
+    status = torch.empty(len(frames), dtype=torch.int32, device=dev)
+    threshold = FRAMES_PER_SM * _sms(dev)
+    ring = _Ring((-(-max(slot_bytes, widest) // 2),), torch.int16, dev, calls + 2, twins=False)
+    # each run is copied in parts, one a decode thread
+    parts = max(n_threads // calls, 1)
+    dpool = cf.ThreadPoolExecutor(calls * parts, thread_name_prefix="decode")
+    copying: deque = deque()
+    call = profiling.current()
+    decoders = ([torch.cuda.Stream(dev) for _ in range(DECODE_STREAMS)] if ring.cuda
+                else None)
+    # the first frame not yet decoded and the first not yet checked; the
+    # file offset (from base) where the device buffer starts, and the word
+    # where the buffer of words starts; the launches so far
+    state = {"first": start, "checked": start, "seg": 0, "word": 0, "launches": 0}
+
+    def decoder():
+        """The stream of the next decode launch: the stream its runs are
+        shipped on and it decodes on (none on the CPU)."""
+        if decoders is None:
+            return contextlib.nullcontext()
+        return torch.cuda.stream(decoders[state["launches"] % len(decoders)])
+
+    def copy(a, b, slot, lo, hi):
+        """Copy the file's bytes [lo, hi) of run [a, b) into its slot."""
+        took = SectionTimer()
+        at = src.bounds(a, b)[0]
+        with profiling.span("lfs.stream.decode", took, under=call, first_frame=a,
+                            frames=b - a, bytes=hi - lo):
+            ctypes.memmove(ring.host[slot].data_ptr() + lo - at, src.addr + lo, hi - lo)
+        return took.totals["decode"]
+
+    def submit(a, b, slot):
+        lo, hi = src.bounds(a, b)
+        step = -(-(hi - lo) // parts)
+        return [dpool.submit(copy, a, b, slot, x, min(x + step, hi)) for x in range(lo, hi, step)]
+
+    def fire(b):
+        """Decode frames [first, b) on the card and count their words."""
+        i, j = state["first"] - start, b - start
+        if i == j:
+            return
+        at = int(words_before[i]) - state["word"]
+        wrap = at + int(words_before[j] - words_before[i]) > words.numel()
+        if wrap:
+            state["word"], at = int(words_before[i]), 0
+        with profiling.span("lfs.stream.dispatch", timer):
+            compute = torch.cuda.current_stream(dev) if decoders else None
+            with decoder():
+                if wrap and decoders:
+                    # the counts before read the words this launch overwrites
+                    torch.cuda.current_stream(dev).wait_stream(compute)
+                decode_frames(comp, table, i, j - i, words.view(torch.uint8), status,
+                              state["seg"], int(raw[i]) - 2 * at)
+                if decoders:
+                    compute.wait_stream(torch.cuda.current_stream(dev))
+            x = i
+            while x < j:
+                if cap is not None and sums.epoch_words + words_before[x + 1] - \
+                        words_before[x] > cap:
+                    sums.roll()
+                y = j
+                if cap is not None:
+                    fit = words_before[x] + cap - sums.epoch_words
+                    y = min(max(int(np.searchsorted(words_before, fit, "right")) - 1, x + 1), j)
+                n = int(words_before[y] - words_before[x])
+                lo = at + int(words_before[x] - words_before[i])
+                _chunk_sums(sums.tally, words[lo:lo + n])
+                sums.epoch_words += n
+                x = y
+        sums.n_words += int(words_before[j] - words_before[i])
+        sums.block = state["first"] = b
+        state["launches"] += 1
+        CARD_DECODE["card_frames"] += j - i
+        CARD_DECODE["launches"] += 1
+
+    def check(b):
+        """Raise the host's error for the first frame before ``b`` the
+        card failed to decode to its raw length."""
+        i, j = state["checked"] - start, b - start
+        with profiling.span("lfs.readback", timer, "final_sync"):
+            got = status[i:j].cpu().numpy()
+        bad = np.flatnonzero(got != frames[i:j, 1])
+        if bad.size:
+            f = state["checked"] + int(bad[0])
+            src.fail(f, f + 1)
+        state["checked"] = b
+
+    def finish(k):
+        """Ship the oldest run in copy, then decode what has landed when
+        it is time."""
+        futs, a, b, slot = copying.popleft()
+        with profiling.span("lfs.stream.decode_wait", timer):
+            for fut in futs:
+                timer.add("decode", fut.result())
+        lo, hi = (x - base for x in src.bounds(a, b))
+        if hi - state["seg"] > seg_cap:
+            # the buffer is full: decode what it holds, then refill it
+            # from its start once that decode has read it
+            fire(a)
+            state["seg"] = lo
+            if ring.cuda:
+                ring.copy_stream.wait_event(torch.cuda.current_stream(dev).record_event())
+        with decoder():
+            ring.ship(slot, hi - lo, timer, into=comp[lo - state["seg"]:hi - state["seg"]])
+        pending = b - state["first"]
+        after = runs[k + 1][1] if k + 1 < len(runs) else None
+        if (b == stop or (every and b % every == 0)
+                or (pending >= threshold and stop - b >= threshold)
+                or (after is not None and words_before[after - start]
+                    - words_before[state["first"] - start] > words.numel())):
+            fire(b)
+        if every and b % every == 0:
+            check(b)
+            with profiling.span("lfs.stream.checkpoint", timer):
+                total, fail = sums.tally.streams()
+                checkpoint.maybe_save(b, _host_i32(total), _host_i32(fail), sums.n_words,
+                                      grand=sums.grand, epoch_words=sums.epoch_words)
+
+    src.advise(start, stop)
+    try:
+        shipped = 0
+        for k, (a, b) in enumerate(runs):
+            slot = ring.acquire(timer)
+            copying.append((submit(a, b, slot), a, b, slot))
+            if len(copying) == calls:
+                finish(shipped)
+                shipped += 1
+        while copying:
+            finish(shipped)
+            shipped += 1
+        check(stop)
+    finally:
+        # the copies still in flight read the mapping and write the slots
+        dpool.shutdown(cancel_futures=True)
         ring.close()
 
 
@@ -460,7 +705,9 @@ def flagstat_stream(path, codec: str | int = "lz4", impl: str | None = None,
     and ``"cuda_pre"`` on ``device="cpu"`` run the kernels' plain
     versions; on a CUDA device they launch the kernels, and the decode
     and transpose need the native library: the call raises if it did
-    not build. ``chunk_words``: at most this many words per device run,
+    not build. ``"cuda"`` over an LZ4 file on a CUDA device decodes the
+    frames on the card (``_count_frames_card``); every other stream
+    decodes them on the host. ``chunk_words``: at most this many words per device run,
     in whole frames (default ``CONFIG.stream_chunk_words``; a frame
     larger than it goes alone; ``"cuda_pre"`` takes a multiple of
     65,536, whole transpose groups). ``threads``: decode threads
@@ -469,7 +716,8 @@ def flagstat_stream(path, codec: str | int = "lz4", impl: str | None = None,
     counters either way. ``checkpoint``: a StreamCheckpoint to resume
     from and update at its block interval. ``timer``: a SectionTimer
     that accumulates the pipeline's stages (decode: the walls of the
-    decode calls, summed, though up to DECODE_CALLS of them overlap;
+    decode calls, or on the card of the copies of compressed bytes,
+    summed, though up to DECODE_CALLS of them overlap;
     decode_wait: the calling thread's wait for the oldest decode;
     slot_wait, transpose_wait, ship: the enqueue of a slot's copy, not
     the copy; dispatch, checkpoint, final_sync; the native impl's

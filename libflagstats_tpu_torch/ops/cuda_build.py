@@ -107,6 +107,7 @@ ENTRIES = {
     "lfs_transform_xor": [_I32, _VP, _I64, _I32, _VP, _VP],
     "lfs_stream_sums_raw": [_I32, _VP, _I64, _I32, _VP, _VP],
     "lfs_fold_xor": [_I32, _VP, _I64, _I32, ctypes.c_uint32, _VP, _VP],
+    "lfs_lz4_decode": [_I32, _VP, _I64, _VP, _I32, _I32, _VP, _I64, _VP, _VP],
     "lfs_wave_blocks": [_I32, ctypes.c_char_p, _I32, ctypes.POINTER(ctypes.c_int)],
     "lfs_words_per_block": [],
     "lfs_words_block_words": [],

@@ -80,9 +80,10 @@ PROBES = ("read_xor", "raw", "transpose_xor", "transform_xor")
 #: kernel launches per mode, counted where the kernel is launched and
 #: nowhere else ("words": K6, ops/words_kernels.py; "fold_xor": K8,
 #: ops/probe_kernels.py; "setop": K9, ops/setalgebra.py; "epilogue": the
-#: epilogue kernel, epilogue_cuda)
+#: epilogue kernel, epilogue_cuda; "lz4_decode": the stream's frame
+#: decode, ops/lz4_decode.py)
 LAUNCHES = {m: 0 for m in MODES + PRE_MODES + ("words",) + PROBES
-            + ("fold_xor", "setop", "epilogue")}
+            + ("fold_xor", "setop", "epilogue", "lz4_decode")}
 
 #: the epilogue's kinds of accumulator: K1/K3's (and K2's) stream orders
 #: in flagstat and report mode, and K6's pass bits then fail bits

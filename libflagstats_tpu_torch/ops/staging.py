@@ -67,9 +67,12 @@ class _Ring:
     copy overwrites a slot's device twin only after the kernel that read
     it has completed (``ship`` waits on the event ``release`` records).
     A slot whose run is still in decode is the caller's to guard: it
-    keeps fewer runs in decode than the ring has slots."""
+    keeps fewer runs in decode than the ring has slots. ``twins=False``
+    makes no device twins: each slot is shipped ``into`` a caller's
+    buffer."""
 
-    def __init__(self, shape, dtype: torch.dtype, device: torch.device, depth: int):
+    def __init__(self, shape, dtype: torch.dtype, device: torch.device, depth: int,
+                 twins: bool = True):
         self.cuda = device.type == "cuda"
         self.device = device
         view = np.uint16 if dtype == torch.int16 else np.uint32
@@ -77,7 +80,7 @@ class _Ring:
                      for _ in range(depth)]
         self.host_np = [h.numpy().view(view) for h in self.host]
         self.dev = ([torch.empty(shape, dtype=dtype, device=device)
-                     for _ in range(depth)] if self.cuda else self.host)
+                     for _ in range(depth)] if self.cuda and twins else self.host)
         self.copied = [None] * depth
         self.consumed = [None] * depth
         self.copy_stream = torch.cuda.Stream(device) if self.cuda else None
@@ -93,16 +96,19 @@ class _Ring:
                 self.copied[slot].synchronize()
         return slot
 
-    def ship(self, slot: int, n: int, timer=None) -> torch.Tensor:
-        """The first ``n`` entries of ``slot`` where the count runs. On a
-        CUDA device the copy runs on the side stream, and the current
-        (compute) stream waits for it. The span ``lfs.stage.ship``
+    def ship(self, slot: int, n: int, timer=None, into: torch.Tensor | None = None
+             ) -> torch.Tensor:
+        """The first ``n`` entries of ``slot`` where the count runs: its
+        device twin, or ``into``, a tensor of ``n`` entries (of any dtype,
+        the slot viewed as it) that the slot is copied into, on the CPU
+        too. On a CUDA device the copy runs on the side stream, and the
+        current (compute) stream waits for it. The span ``lfs.stage.ship``
         (``timer``'s section ``ship``) times the enqueue, not the copy."""
-        src = self.host[slot][:n]
+        src = (self.host[slot] if into is None else self.host[slot].view(into.dtype))[:n]
         with profiling.span("lfs.stage.ship", timer, bytes=src.nbytes):
             if not self.cuda:
-                return src
-            dst = self.dev[slot][:n]
+                return src if into is None else into.copy_(src)
+            dst = self.dev[slot][:n] if into is None else into
             with torch.cuda.stream(self.copy_stream):
                 if self.consumed[slot] is not None:
                     self.copy_stream.wait_event(self.consumed[slot])

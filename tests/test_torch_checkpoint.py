@@ -15,6 +15,7 @@ from libflagstats_tpu.oracle import flagstat_numpy, generate_flags
 from libflagstats_tpu_torch.io import stream as tS
 from libflagstats_tpu_torch.ops import dispatch as tD
 from libflagstats_tpu_torch.ops import kernels as K
+from test_torch_stream import engage
 
 GW = K.GROUP_WORDS
 CAP = 150_000   # a small DEVICE_WORD_CAP: epochs roll every third chunk
@@ -36,17 +37,20 @@ def files(tmp_path_factory):
     return path, part, x
 
 
-def _run(pkg, path, ck, impl):
+def _run(pkg, path, ck, impl, monkeypatch=None):
     if pkg == "jax":
         return jS.flagstat_stream(path, "lz4", impl=impl, chunk_words=GW,
                                   checkpoint=ck)
     kw = {"device": "cpu"} if impl.startswith("cuda") else {}
-    return tS.flagstat_stream(path, "lz4", impl=impl, chunk_words=GW,
+    return tS.flagstat_stream(path, "lz4", impl=engage(impl, monkeypatch), chunk_words=GW,
                               checkpoint=ck, **kw)
 
 
+#: "cuda_card": the path where the card decodes the frames, on the CPU
+#: (tests/test_torch_stream.py ``engage``)
 DEVICE_PAIRS = [("jax", "xla", "port", "cuda_pre"), ("jax", "xla", "port", "torch"),
-                ("port", "cuda_pre", "jax", "xla"), ("port", "cuda", "jax", "xla")]
+                ("port", "cuda_pre", "jax", "xla"), ("port", "cuda", "jax", "xla"),
+                ("jax", "xla", "port", "cuda_card"), ("port", "cuda_card", "jax", "xla")]
 
 
 @pytest.mark.parametrize("pair", DEVICE_PAIRS, ids=["-".join(p) for p in DEVICE_PAIRS])
@@ -57,11 +61,12 @@ def test_device_checkpoint_resumes_across_packages(tmp_path, monkeypatch, files,
     monkeypatch.setattr(tD, "DEVICE_WORD_CAP", CAP)
     Ck = {"jax": jS.StreamCheckpoint, "port": tS.StreamCheckpoint}
     ck_path = tmp_path / "ck.npz"
-    _run(writer, part, Ck[writer](ck_path, every_blocks=2), w_impl)
+    _run(writer, part, Ck[writer](ck_path, every_blocks=2), w_impl, monkeypatch)
     ck = Ck[reader](ck_path, every_blocks=2)
     assert ck.kind == "sums" and ck.block_index == 4 and ck.n_words == 4 * GW
     assert ck.total.dtype == np.int32 and ck.grand.sum() > 0   # an epoch rolled
-    np.testing.assert_array_equal(_run(reader, path, ck, r_impl), flagstat_numpy(x))
+    np.testing.assert_array_equal(_run(reader, path, ck, r_impl, monkeypatch),
+                                  flagstat_numpy(x))
     assert ck.block_index == 6 and ck.n_words == 6 * GW
 
 

@@ -12,6 +12,7 @@ import torch
 
 from libflagstats_tpu_torch.ops import cuda_build
 from libflagstats_tpu_torch.ops import kernels as K
+from libflagstats_tpu_torch.ops import lz4_decode as Z
 from libflagstats_tpu_torch.ops import probe_kernels as P
 from libflagstats_tpu_torch.ops import setalgebra as S
 from libflagstats_tpu_torch.ops import words_kernels as W
@@ -34,6 +35,7 @@ WRAPPERS = {
     P.transform_xor_pre_cuda: ("lfs_transform_xor", "transform_xor"),
     P.stream_sums_raw_cuda: ("lfs_stream_sums_raw", "raw"),
     P.fold_xor_cuda: ("lfs_fold_xor", "fold_xor"),
+    Z.decode_frames: ("lfs_lz4_decode", "lz4_decode"),
 }
 
 
@@ -82,7 +84,7 @@ def test_launch_passes_the_ordinal_first_and_the_stream_last(lib, wrapper):
     assert len(lib.calls) == 3 and K.LAUNCHES[key] == before + 1
 
 
-@pytest.mark.parametrize("module", [K, W, P, S], ids=lambda m: m.__name__.rsplit(".", 1)[-1])
+@pytest.mark.parametrize("module", [K, W, P, S, Z], ids=lambda m: m.__name__.rsplit(".", 1)[-1])
 def test_no_launch_site_keeps_a_device_guard_or_a_stream_object(module):
     source = inspect.getsource(module)
     assert "torch.cuda.device(" not in source and ".cuda_stream" not in source

@@ -119,6 +119,36 @@ def test_stream_decode_runs_on_workers_waits_on_the_caller(framed, impl):
     check_tree(spans)
 
 
+def test_card_stream_copies_on_workers_and_launches_the_decode(framed, monkeypatch):
+    """Where the card decodes (here its plain version): a worker's
+    ``lfs.stream.decode`` is the copy of a part of a run's bytes of the
+    file (two parts a run, with 8 decode threads for 4 runs at once), the
+    calling thread waits in ``lfs.stream.decode_wait`` once a run, and each
+    ``lfs.stream.dispatch`` holds one decode launch and one count, each
+    an ``lfs.launch``; the statuses come back in ``lfs.readback``."""
+    from libflagstats_tpu_torch.io import stream as S
+
+    monkeypatch.setattr(S, "_card_decodes", lambda codec, impl, dev: impl == "cuda")
+    path, x = framed
+    timer = P.SectionTimer()
+    got, spans = traced(lambda: L.flagstat_stream(path, "lz4", impl="cuda", chunk_words=GW,
+                                                  timer=timer, device="cpu"))
+    np.testing.assert_array_equal(got, flagstat_numpy(x))
+    main = threading.get_native_id()
+    copies = named(spans, "lfs.stream.decode")
+    assert len(copies) == timer.counts["decode"] == 2 * len(named(spans,
+                                                                   "lfs.stream.decode_wait"))
+    assert all(s.thread != main and not s.traced for s in copies)
+    assert sum(s.args["bytes"] for s in copies) == path.stat().st_size
+    assert sum(s.args["frames"] for s in copies) == 2 * 21
+    dispatches = named(spans, "lfs.stream.dispatch")
+    launches = named(spans, "lfs.launch")
+    assert len(dispatches) == timer.counts["dispatch"] and len(launches) == 2 * len(dispatches)
+    assert sum(s.args["frames"] for s in launches if s.args["mode"] == "lz4_decode") == 21
+    assert len(named(spans, "lfs.readback")) == 2     # the statuses, then the counters
+    check_tree(spans)
+
+
 def test_with_the_profiler_off_nothing_is_recorded(framed, monkeypatch):
     assert not torch.autograd._profiler_enabled()
     assert P.span("lfs.launch", mode="flagstat", words=1) is P.NOOP

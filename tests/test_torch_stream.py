@@ -2,7 +2,9 @@
 equals the JAX package's stream (impl="native") and flagstat_numpy on
 the same framed files: the kernel impls on device="cpu" run their plain
 versions through the whole pipeline (staging, transpose stage, ring,
-epoch roll). Exact."""
+epoch roll). "cuda_card" is impl="cuda" on the path a CUDA device takes
+for an LZ4 file, where the card decodes the frames (here the decode
+kernel's plain version). Exact."""
 import numpy as np
 import pytest
 import torch
@@ -23,7 +25,20 @@ IMPLS = {
     "torch": {},
     "cuda": {"device": "cpu"},
     "cuda_pre": {"device": "cpu"},
+    "cuda_card": {"device": "cpu"},
 }
+
+
+def engage(impl, monkeypatch):
+    """The impl to pass for ``impl``: "cuda_card" is "cuda" on the CPU
+    with the frames decoded as on a CUDA device, by the decode kernel's
+    plain version."""
+    if impl != "cuda_card":
+        return impl
+    card = S._card_decodes
+    monkeypatch.setattr(S, "_card_decodes",
+                        lambda codec, impl, dev: card(codec, impl, torch.device("cuda")))
+    return "cuda"
 
 
 @pytest.fixture(scope="module")
@@ -37,26 +52,38 @@ def stream_file(tmp_path_factory):
 
 
 @pytest.mark.parametrize("impl", list(IMPLS))
-def test_stream_equals_jax_and_oracle(stream_file, impl):
+def test_stream_equals_jax_and_oracle(stream_file, monkeypatch, impl):
     path, x = stream_file
     timer = SectionTimer()
-    got = L.flagstat_stream(path, "lz4", impl=impl, chunk_words=GW, timer=timer,
-                            **IMPLS[impl])
+    before = dict(S.CARD_DECODE)
+    got = L.flagstat_stream(path, "lz4", impl=engage(impl, monkeypatch), chunk_words=GW,
+                            timer=timer, **IMPLS[impl])
     assert got.dtype == np.uint64
     np.testing.assert_array_equal(got, jS.flagstat_stream(path, "lz4", impl="native"))
     np.testing.assert_array_equal(got, flagstat_numpy(x))
-    if impl != "native":
+    decoded = {k: S.CARD_DECODE[k] - before[k] for k in before}
+    if impl == "cuda_card":
+        # 15 frames of 15,000 words that hardly compress, four to a run
+        # of at most 2 * GW bytes, each copied in two parts (8 decode
+        # threads, 4 runs at once); a launch a run, since 3 frames (a
+        # CPU's one "SM") land and as many are still to come each time
+        assert decoded == {"card_frames": 15, "host_frames": 0, "launches": 4}
+        assert timer.counts["dispatch"] == timer.counts["decode_wait"] == 4
+        assert timer.counts["decode"] == 8
+        assert "ms total" in timer.report()
+    elif impl != "native":
+        assert decoded == {"card_frames": 0, "host_frames": 15, "launches": 0}
         assert timer.counts["dispatch"] == 4       # 3 whole chunks + the padded tail
         assert "ms total" in timer.report()
     if impl == "cuda_pre":
         assert timer.counts["transpose_wait"] == 4
 
 
-@pytest.mark.parametrize("impl", ["cuda", "cuda_pre", "torch"])
-def test_report_mode(stream_file, impl):
+@pytest.mark.parametrize("impl", ["cuda", "cuda_pre", "torch", "cuda_card"])
+def test_report_mode(stream_file, monkeypatch, impl):
     path, x = stream_file
-    got = L.flagstat_stream(path, "lz4", impl=impl, chunk_words=GW, report=True,
-                            **IMPLS[impl]).astype(np.int64)
+    got = L.flagstat_stream(path, "lz4", impl=engage(impl, monkeypatch), chunk_words=GW,
+                            report=True, **IMPLS[impl]).astype(np.int64)
     ref = flagstat_numpy(x).astype(np.int64)
     idx = list(jF.REPORT_COUNTERS)
     np.testing.assert_array_equal(got[idx], ref[idx])
@@ -76,7 +103,7 @@ def test_zstd_and_larger_chunks(tmp_path, impl):
     np.testing.assert_array_equal(got, flagstat_numpy(x))
 
 
-@pytest.mark.parametrize("impl", ["torch", "cuda", "cuda_pre"])
+@pytest.mark.parametrize("impl", ["torch", "cuda", "cuda_pre", "cuda_card"])
 def test_epoch_roll_past_device_cap(tmp_path, monkeypatch, impl):
     """With a tiny DEVICE_WORD_CAP the device sums roll into the host
     grand total every few chunks and stay exact."""
@@ -84,7 +111,8 @@ def test_epoch_roll_past_device_cap(tmp_path, monkeypatch, impl):
     x = generate_flags(1_000_003, seed=83, full_range=True)
     path = tmp_path / "cap.lz4"
     jC.write_framed(path, x, codec="lz4", level=1)
-    got = L.flagstat_stream(path, "lz4", impl=impl, chunk_words=GW, **IMPLS[impl])
+    got = L.flagstat_stream(path, "lz4", impl=engage(impl, monkeypatch), chunk_words=GW,
+                            **IMPLS[impl])
     np.testing.assert_array_equal(got, flagstat_numpy(x))
 
 

@@ -6,11 +6,14 @@ geometry; for "torch" and "cuda" the decoder writes only into the ring's
 slots; bad headers, truncated tails, trailing bytes and corrupt payloads
 raise what the JAX stream raises and leave the checkpoint file it
 leaves; without the native library the same loop decodes frame by
-frame. Exact."""
+frame. "cuda_card" is impl="cuda" where the card decodes an LZ4 file's
+frames (here the decode kernel's plain version): its runs, launches,
+buffers and checkpoints give the same counts and errors. Exact."""
 import struct
 
 import numpy as np
 import pytest
+import torch
 
 import libflagstats_tpu.io.stream as jS
 from libflagstats_tpu import flags as F
@@ -24,9 +27,11 @@ from libflagstats_tpu_torch.io import native_lib
 from libflagstats_tpu_torch.io import stream as S
 from libflagstats_tpu_torch.ops import dispatch as D
 from libflagstats_tpu_torch.ops import kernels as K
+from test_torch_stream import engage
 
 GW = K.GROUP_WORDS
-IMPLS = {"torch": {}, "cuda": {"device": "cpu"}, "cuda_pre": {"device": "cpu"}}
+IMPLS = {"torch": {}, "cuda": {"device": "cpu"}, "cuda_pre": {"device": "cpu"},
+         "cuda_card": {"device": "cpu"}}
 CODECS = {"raw": 0, "lz4": 1, "zstd": 3}     # codec -> level
 EPOCH_CAP = 100_000
 
@@ -74,6 +79,36 @@ def framed(tmp_path_factory):
     return get
 
 
+def card_runs(path, codec, threads: int = 8) -> tuple[int, int]:
+    """(runs, copies) of the card path over ``path`` at chunk_words=GW:
+    runs of whole frames of at most 2 * GW bytes of the file, or one
+    frame, each copied in as many parts as the decode threads allow."""
+    src = S._FramedFile(path, codec)
+    try:
+        runs = list(src.runs(0, len(src.frames), S.DECODE_WORDS, 0, 2 * GW))
+        parts = max(threads // min(S.DECODE_CALLS, threads), 1)
+        return len(runs), sum(min(parts, src.span(a, b)) for a, b in runs)
+    finally:
+        src.close()
+
+
+def counted(monkeypatch, impl, codec, run):
+    """(result, timer, moves of ``stream.CARD_DECODE``) of
+    ``run(impl, timer)`` for ``impl``, after checking where the frames
+    decoded: for "cuda_card" over an LZ4 file on the card path (a
+    dispatch a decode launch), else on the host."""
+    timer = SectionTimer()
+    before = dict(S.CARD_DECODE)
+    got = run(engage(impl, monkeypatch), timer)
+    decoded = {k: S.CARD_DECODE[k] - before[k] for k in before}
+    if impl == "cuda_card" and codec == "lz4":
+        assert decoded["host_frames"] == 0 and decoded["launches"] == timer.counts.get(
+            "dispatch", 0)
+    else:
+        assert decoded["card_frames"] == decoded["launches"] == 0
+    return got, timer, decoded
+
+
 @pytest.mark.parametrize("geometry", list(GEOMETRIES))
 @pytest.mark.parametrize("codec", list(CODECS))
 @pytest.mark.parametrize("impl", list(IMPLS))
@@ -81,13 +116,19 @@ def test_runs_equal_jax_and_oracle(framed, monkeypatch, impl, codec, geometry):
     path, x, jax_native, jax_xla = framed(codec, geometry)
     if geometry == "epoch_roll":
         monkeypatch.setattr(D, "DEVICE_WORD_CAP", EPOCH_CAP)
-    timer = SectionTimer()
-    got = L.flagstat_stream(path, codec, impl=impl, chunk_words=GW, timer=timer,
-                            **IMPLS[impl])
+    got, timer, decoded = counted(
+        monkeypatch, impl, codec, lambda impl, timer: L.flagstat_stream(
+            path, codec, impl=impl, chunk_words=GW, timer=timer, **IMPLS[impl]))
     assert got.dtype == np.uint64
     np.testing.assert_array_equal(got, flagstat_numpy(x))
     np.testing.assert_array_equal(got, jax_native)
     np.testing.assert_array_equal(got, jax_xla)
+    if impl == "cuda_card" and codec == "lz4":
+        runs, copies = card_runs(path, codec)
+        assert decoded["card_frames"] == len(list(jC.iter_framed(path)))
+        assert timer.counts.get("decode_wait", 0) == runs
+        assert timer.counts.get("decode", 0) == copies
+        return
     runs = GEOMETRIES[geometry][2]
     assert timer.counts.get("dispatch", 0) == runs
     assert timer.counts.get("decode", 0) == runs
@@ -219,7 +260,8 @@ def test_bad_tail_raises_as_jax_and_leaves_its_checkpoint(tmp_path, monkeypatch,
         jS.flagstat_stream(bad, "lz4", impl="xla", chunk_words=GW, threads=1,
                            checkpoint=jS.StreamCheckpoint(tmp_path / "jax.npz", EVERY))
     with pytest.raises(ValueError) as port_err:
-        L.flagstat_stream(bad, "lz4", impl=impl, chunk_words=GW, threads=1,
+        L.flagstat_stream(bad, "lz4", impl=engage(impl, monkeypatch), chunk_words=GW,
+                          threads=1,
                           checkpoint=S.StreamCheckpoint(tmp_path / "port.npz", EVERY),
                           **IMPLS[impl])
     assert str(port_err.value) == str(jax_err.value) == str(want.value)
@@ -228,8 +270,8 @@ def test_bad_tail_raises_as_jax_and_leaves_its_checkpoint(tmp_path, monkeypatch,
     assert ck.block_index == GOOD // EVERY * EVERY and ck.n_words == ck.block_index * GW
     # the interrupted run resumes on the whole file, exactly
     np.testing.assert_array_equal(
-        L.flagstat_stream(path, "lz4", impl=impl, chunk_words=GW, checkpoint=ck,
-                          **IMPLS[impl]), flagstat_numpy(x))
+        L.flagstat_stream(path, "lz4", impl=engage(impl, monkeypatch), chunk_words=GW,
+                          checkpoint=ck, **IMPLS[impl]), flagstat_numpy(x))
 
 
 def _corrupt(codec, frames, i):
@@ -244,7 +286,7 @@ def _corrupt(codec, frames, i):
 
 @pytest.mark.parametrize("codec", list(CODECS))
 @pytest.mark.parametrize("impl", list(IMPLS))
-def test_corrupt_payload_raises_as_jax(tmp_path, impl, codec):
+def test_corrupt_payload_raises_as_jax(tmp_path, monkeypatch, impl, codec):
     x = generate_flags(12 * GW, seed=1512, full_range=True)
     path = tmp_path / f"good.{codec}"
     jC.write_framed(path, x, codec=codec, level=CODECS[codec], block_bytes=2 * GW)
@@ -253,7 +295,8 @@ def test_corrupt_payload_raises_as_jax(tmp_path, impl, codec):
         jS.flagstat_stream(bad, codec, impl="xla", chunk_words=GW, threads=1,
                            checkpoint=jS.StreamCheckpoint(tmp_path / "jax.npz", EVERY))
     with pytest.raises((ValueError, RuntimeError)) as port_err:
-        L.flagstat_stream(bad, codec, impl=impl, chunk_words=GW, threads=1,
+        L.flagstat_stream(bad, codec, impl=engage(impl, monkeypatch), chunk_words=GW,
+                          threads=1,
                           checkpoint=S.StreamCheckpoint(tmp_path / "port.npz", EVERY),
                           **IMPLS[impl])
     assert type(port_err.value) is type(jax_err.value)
@@ -270,12 +313,13 @@ def test_without_the_native_library(framed, monkeypatch, impl, codec):
     monkeypatch.setattr(native_lib, "load", lambda: None)
     for geometry in ("unaligned", "frame_above_chunk"):
         path, x, jax_native, _ = framed(codec, geometry)
-        timer = SectionTimer()
-        got = L.flagstat_stream(path, codec, impl=impl, chunk_words=GW, timer=timer,
-                                **IMPLS[impl])
+        got, timer, _ = counted(monkeypatch, impl, codec, lambda impl, timer: L.flagstat_stream(
+            path, codec, impl=impl, chunk_words=GW, timer=timer, **IMPLS[impl]))
         np.testing.assert_array_equal(got, flagstat_numpy(x))
         np.testing.assert_array_equal(got, jax_native)
-        assert timer.counts["decode"] == GEOMETRIES[geometry][2]
+        card = impl == "cuda_card" and codec == "lz4"
+        assert timer.counts["decode"] == (card_runs(path, codec)[1] if card
+                                          else GEOMETRIES[geometry][2])
 
 
 def test_runs_never_cross_a_checkpoint_boundary(tmp_path):
@@ -314,8 +358,89 @@ def test_decode_calls_in_flight(framed, monkeypatch, calls, threads):
     monkeypatch.setattr(D, "DEVICE_WORD_CAP", EPOCH_CAP)
     path, x, jax_native, _ = framed("lz4", "epoch_roll")
     for impl in IMPLS:
-        timer = SectionTimer()
-        got = L.flagstat_stream(path, "lz4", impl=impl, chunk_words=GW, threads=threads,
-                                timer=timer, **IMPLS[impl])
+        with monkeypatch.context() as m:
+            got, timer, _ = counted(m, impl, "lz4", lambda impl, timer: L.flagstat_stream(
+                path, "lz4", impl=impl, chunk_words=GW, threads=threads, timer=timer,
+                **IMPLS[impl]))
         np.testing.assert_array_equal(got, jax_native)
-        assert timer.counts["decode"] == timer.counts["dispatch"] == 7
+        if impl == "cuda_card":
+            runs, copies = card_runs(path, "lz4", threads)
+            assert timer.counts["decode_wait"] == runs and timer.counts["decode"] == copies
+        else:
+            assert timer.counts["decode"] == timer.counts["dispatch"] == 7
+
+
+#: (SMs, DECODE_WORDS, SEGMENT_BYTES) of the card path: the CPU's one
+#: "SM" and the defaults; launches of 6 and 21 frames; a decode buffer of
+#: three 20,000-word frames; a device buffer of the file's bytes refilled
+#: from its start every few runs
+CARD_SIZES = [(1, None, None), (2, None, None), (7, None, None), (1, 60_000, None),
+              (3, None, 200_000), (2, 45_000, 150_000)]
+
+
+@pytest.mark.parametrize("sms,decode_words,segment_bytes", CARD_SIZES)
+def test_card_launches_take_whole_landed_frames(framed, monkeypatch, sms, decode_words,
+                                                segment_bytes):
+    """Each decode launch takes the frames landed since the last, in
+    order: at least FRAMES_PER_SM an SM but at the end or when the next
+    run would overflow the decode buffer, which no launch of more than
+    one frame does; the counts are exact with the epoch rolling."""
+    monkeypatch.setattr(S, "_sms", lambda dev: sms)
+    if decode_words:
+        monkeypatch.setattr(S, "DECODE_WORDS", decode_words)
+    if segment_bytes:
+        monkeypatch.setattr(S, "SEGMENT_BYTES", segment_bytes)
+    monkeypatch.setattr(D, "DEVICE_WORD_CAP", EPOCH_CAP)
+    launches = []
+
+    def decode_frames(comp, table, first, count, *args):
+        launches.append((first, count, int(table[first + count - 1, 2] + table[
+            first + count - 1, 3] - table[first, 2]) // 2))
+        return real(comp, table, first, count, *args)
+
+    real = S.decode_frames
+    monkeypatch.setattr(S, "decode_frames", decode_frames)
+    for geometry in ("unaligned", "epoch_roll"):
+        path, x, jax_native, _ = framed("lz4", geometry)
+        launches.clear()
+        got, timer, decoded = counted(monkeypatch, "cuda_card", "lz4",
+                                      lambda impl, timer: L.flagstat_stream(
+                                          path, "lz4", impl=impl, chunk_words=GW, timer=timer,
+                                          device="cpu"))
+        np.testing.assert_array_equal(got, jax_native)
+        frames = len(list(jC.iter_framed(path)))
+        assert decoded == {"card_frames": frames, "host_frames": 0,
+                           "launches": len(launches)}
+        assert [f for f, _, _ in launches] == list(np.cumsum([0] + [c for _, c, _ in
+                                                                    launches])[:-1])
+        assert sum(c for _, c, _ in launches) == frames
+        for _, count, words in launches[:-1]:
+            assert count >= S.FRAMES_PER_SM * sms or (decode_words and words + 2 * GW >
+                                                      decode_words) or segment_bytes
+        for _, count, words in launches:
+            assert count == 1 or words <= S.DECODE_WORDS
+
+
+def test_card_path_is_chosen_by_codec_impl_and_device():
+    """The card decodes an LZ4 file counted by "cuda" on a CUDA device,
+    and nothing else."""
+    cuda, cpu = torch.device("cuda", 0), torch.device("cpu")
+    assert S._card_decodes(1, "cuda", cuda)
+    for codec, impl, dev in ((0, "cuda", cuda), (2, "cuda", cuda), (1, "cuda_pre", cuda),
+                             (1, "torch", cuda), (1, "cuda", cpu)):
+        assert not S._card_decodes(codec, impl, dev), (codec, impl, dev)
+
+
+@pytest.mark.parametrize("blocks", [(0, 17), (3, 11), (16, 17), (5, 5)])
+def test_card_path_counts_a_block_range_as_the_host(framed, monkeypatch, blocks):
+    """The framed-file leg of ``parallel.multihost`` (``framed_range_sums``)
+    over a block range: the card path's (C[k], F[k]) are the host path's."""
+    path, _, _, _ = framed("lz4", "unaligned")
+    start, stop = blocks
+    host = S.framed_range_sums(path, "lz4", start, stop, "cuda", device="cpu")
+    before = dict(S.CARD_DECODE)
+    card = S.framed_range_sums(path, "lz4", start, stop, engage("cuda_card", monkeypatch),
+                               device="cpu")
+    assert S.CARD_DECODE["card_frames"] - before["card_frames"] == stop - start
+    for a, b in zip(card, host):
+        np.testing.assert_array_equal(a.numpy(), b.numpy())
