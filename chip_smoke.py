@@ -14,7 +14,8 @@ It builds the CUDA kernels from ops/csrc/ (into build/torch_kernels/)
 and the native host library (into build/torch_host/), holds every
 kernel against its plain torch version and the host oracles at edge
 sizes, drives the public entry points at full scale (64Mi full-range
-words, the 824,541,892-word synthetic NA12878 column, and that column
+words, the 824,541,892-word synthetic NA12878 column, pageable and in
+one pinned tensor whose pieces ship from its own memory, and that column
 written as a framed LZ4 file of ~0.83 GB in a temporary directory and
 streamed back through flagstat_stream, whose device impls decode runs
 of whole frames straight into pinned slots (each impl twice with its
@@ -664,7 +665,104 @@ def drive_main_path(card: str) -> dict:
     print(f"[{card}] one-shot wall, NA12878 from a host column: flagstats_u16 "
           f"{wall:.4f} s, impl='native' {native:.4f} s (least of 3 each, in turns)")
     print(report.text())
+    check_pinned_column(arr, c, seen, card)
     return arr
+
+
+@contextlib.contextmanager
+def host_copies():
+    """A list that gathers the bytes of every staging copy into a ring
+    slot (``staging._copy_in``) while the block runs."""
+    copied, copy_in = [], ST._copy_in
+
+    def counted(dst, src):
+        copied.append(src.nbytes)
+        copy_in(dst, src)
+    ST._copy_in = counted
+    try:
+        yield copied
+    finally:
+        ST._copy_in = copy_in
+
+
+def check_pinned_column(arr: np.ndarray, c: np.ndarray, seen: dict, card: str) -> None:
+    """Phase 4a (e): the NA12878 column in one page-locked tensor. Every
+    piece of flagstats_u16 (cuda, cuda_report, cuda_words) and of
+    pospopcnt_u16 ships from the caller's memory (``STAGED["direct"]``
+    a piece, no copy into a slot) and counts exactly; a one-piece pinned
+    column is one native call from its own address; the caller may
+    overwrite its column as soon as ``staged_sums`` has returned."""
+    t0 = time.perf_counter()
+    pinned = torch.empty(arr.size, dtype=torch.int16, pin_memory=True)
+    pinned.copy_(torch.from_numpy(arr.view(np.int16)))
+    assert pinned.is_pinned()
+    made = time.perf_counter() - t0
+    n_na = pieces_of(arr.size)
+
+    def direct(mode, fn):
+        before = ST.STAGED["direct"]
+        with host_copies() as copied:
+            out = staged(seen, mode, n_na, fn)
+        assert ST.STAGED["direct"] - before == n_na and not copied, (mode, copied)
+        return out
+
+    check_na12878(direct("flagstat", lambda: L.flagstats_u16(pinned)), c, "pinned cuda")
+    check_na12878(direct("flagstat_report", lambda: L.flagstats_u16(pinned, impl="cuda_report")),
+                  c, "pinned cuda_report", report=True)
+    check_na12878(direct("words", lambda: L.flagstats_u16(pinned, impl="cuda_words")), c,
+                  "pinned cuda_words")
+    pos = direct("pospopcnt", lambda: L.pospopcnt_u16(pinned))
+    assert (pos == L.pospopcnt_u16(arr, impl="native")).all(), pos
+    # cuda_pre still transposes each piece into a slot on the host
+    before = ST.STAGED["direct"]
+    with host_copies() as copied:
+        pre = L.flagstats_u16(pinned[:1 << 25], impl="cuda_pre")
+    assert (pre == L.flagstats_u16(arr[:1 << 25], impl="native")).all(), pre
+    assert ST.STAGED["direct"] == before and not copied
+    seen.update(K.LAUNCHES)
+
+    # one piece of it: one native call that copies from the column itself
+    part, srcs = pinned[5:5 + 1_000_003], []
+    count = K.flagstat_count
+
+    def spy(dev, mode, words, n, src, consumed=None):
+        srcs.append(src)
+        return count(dev, mode, words, n, src, consumed)
+    K.flagstat_count = spy
+    try:
+        before = (D.ONE_CALL["calls"], ST.STAGED["direct"])
+        with host_copies() as copied:
+            got = L.flagstats_u16(part)
+    finally:
+        K.flagstat_count = count
+    assert srcs == [part.data_ptr()] and not copied, (srcs, part.data_ptr(), copied)
+    assert (D.ONE_CALL["calls"] - before[0], ST.STAGED["direct"] - before[1]) == (1, 1)
+    assert (got == L.flagstats_u16(arr[5:5 + 1_000_003], impl="native")).all()
+    seen.update(K.LAUNCHES)
+
+    # the caller's memory is free once the call returns: overwrite it at
+    # once, then read the streams the call enqueued
+    want = [x.cpu() for x in ST.staged_sums([(torch.from_numpy(arr.view(np.int16)), "cuda:0")],
+                                            "cuda")[0]]
+    (streams,) = ST.staged_sums([(pinned, "cuda:0")], "cuda")
+    pinned.zero_()
+    got = [x.cpu() for x in streams]
+    assert all(torch.equal(g, w) for g, w in zip(got, want)), (got, want)
+    seen.update(K.LAUNCHES)
+    pinned.copy_(torch.from_numpy(arr.view(np.int16)))
+
+    wall, native = walls_beside_native(lambda: L.flagstats_u16(pinned),
+                                       lambda: L.flagstats_u16(arr, impl="native"))
+    seen.update(K.LAUNCHES)
+    print(f"main path (e): NA12878 in a pinned tensor (pinned and filled in {made:.3f} s): "
+          f"cuda, cuda_report, cuda_words and pospopcnt_u16 = oracle, {n_na} pieces a call, "
+          f"all shipped from the caller's memory, none copied into a slot; cuda_pre on 32Mi "
+          f"words still through the slots; one piece of it one native call from its own "
+          f"address; zeroed at once after staged_sums returned, its streams unchanged")
+    print(f"[{card}] one-shot wall, NA12878 from a pinned host column: flagstats_u16 "
+          f"{wall:.4f} s ({2 * arr.size / wall / 1e9:.2f} GB/s), impl='native' {native:.4f} s "
+          f"(least of 3 each, in turns)")
+    del pinned
 
 
 def check_stream(path, label: str, impl: str, report: bool, card: str, want_report) -> None:

@@ -31,9 +31,10 @@ kernel masks its own ragged edge, so nothing is padded on the host.
 
 A kernel tier given a host column (a numpy array or a CPU tensor)
 counts it through ``ops/staging.py``: pieces of ``STAGE_WORDS`` words
-copied into pinned slots, shipped on a side stream and counted one
-launch a piece, the sums accumulating in place on the device (on the CPU
-the same loop runs the plain versions). Words already on a card are
+copied into pinned slots (a column already pinned ships from its own
+memory), shipped on a side stream and counted one launch a piece, the
+sums accumulating in place on the device (on the CPU the same loop runs
+the plain versions). Words already on a card are
 counted where they lie; ``"torch"`` and ``"torch_matmul"`` copy a column
 whole. On a card a kernel tier's count ends in the epilogue kernel,
 which writes the 32 counters, a copy of them into a pinned host buffer

@@ -22,6 +22,12 @@ versions, through the same loop. ``staged_sums`` returns each column's
 (C[k], F[k]); the one-shot entry points read a tally's 32 counters.
 ``count_piece`` counts a host column of one piece in one native call
 through a slot of the same ring.
+
+A column the caller holds in page-locked memory skips the host copy: on
+a CUDA device its raw-word pieces ship straight from the caller's memory
+into the slots' device twins (``ships_direct``), and the call does not
+return before the last such copy has completed, so the caller's memory
+is never read after the call that was handed it.
 """
 from __future__ import annotations
 
@@ -48,9 +54,12 @@ DEPTH = 4
 #: threads of a ``cuda_pre`` piece's packed transpose: the best of 2, 4
 #: and 8 on an H100's 8-core host (PERF.md)
 TRANSPOSE_THREADS = 4
-#: host columns staged, and pieces shipped (counted where a piece is
-#: shipped and nowhere else)
-STAGED = {"columns": 0, "pieces": 0}
+#: host columns staged, pieces shipped, and those of them shipped from the
+#: caller's own memory (counted where a piece is shipped and nowhere else)
+STAGED = {"columns": 0, "pieces": 0, "direct": 0}
+#: tally impls whose pieces are raw words, which a pinned column ships as
+#: they lie (``cuda_pre`` ships plane tiles it transposes on the host)
+DIRECT_IMPLS = ("cuda", "cuda_words", "pospopcnt")
 
 _RINGS: dict = {}
 #: one staged call at a time: the rings are shared by every caller
@@ -96,16 +105,22 @@ class _Ring:
                 self.copied[slot].synchronize()
         return slot
 
-    def ship(self, slot: int, n: int, timer=None, into: torch.Tensor | None = None
-             ) -> torch.Tensor:
+    def ship(self, slot: int, n: int, timer=None, into: torch.Tensor | None = None,
+             src: torch.Tensor | None = None) -> torch.Tensor:
         """The first ``n`` entries of ``slot`` where the count runs: its
         device twin, or ``into``, a tensor of ``n`` entries (of any dtype,
         the slot viewed as it) that the slot is copied into, on the CPU
-        too. On a CUDA device the copy runs on the side stream, and the
-        current (compute) stream waits for it. The span ``lfs.stage.ship``
-        (``timer``'s section ``ship``) times the enqueue, not the copy."""
-        src = (self.host[slot] if into is None else self.host[slot].view(into.dtype))[:n]
-        with profiling.span("lfs.stage.ship", timer, bytes=src.nbytes):
+        too. ``src``: ``n`` entries of the caller's own column shipped in
+        the host slot's place (on the CPU counted where they lie); the
+        caller keeps them unchanged until the copy has completed
+        (``copied[slot]``). On a CUDA device the copy runs on the side
+        stream, and the current (compute) stream waits for it. The span
+        ``lfs.stage.ship`` (``timer``'s section ``ship``; arg ``source``,
+        ``"caller"`` or ``"slot"``) times the enqueue, not the copy."""
+        source = "slot" if src is None else "caller"
+        if src is None:
+            src = (self.host[slot] if into is None else self.host[slot].view(into.dtype))[:n]
+        with profiling.span("lfs.stage.ship", timer, bytes=src.nbytes, source=source):
             if not self.cuda:
                 return src if into is None else into.copy_(src)
             dst = self.dev[slot][:n] if into is None else into
@@ -158,6 +173,15 @@ def _copy_in(dst: torch.Tensor, src: torch.Tensor) -> None:
     intra-op threads."""
     with profiling.span("lfs.stage.copy_in", bytes=src.nbytes):
         dst.copy_(src)
+
+
+def ships_direct(words: torch.Tensor, impl: str, device: torch.device) -> bool:
+    """Whether a host column's pieces ship straight from the caller's
+    memory: ``words`` (1-D int16 on the CPU) lie contiguous in page-locked
+    memory, the tally's ``impl`` counts raw words (``DIRECT_IMPLS``) and
+    ``device`` is a CUDA device. Else each piece is copied into a slot."""
+    return (device.type == "cuda" and impl in DIRECT_IMPLS and words.is_contiguous()
+            and words.is_pinned())
 
 
 def _pieces(columns, step: int):
@@ -310,7 +334,9 @@ def stage(columns) -> None:
     ``"cuda_words"`` or ``"pospopcnt"``) on the device its column is
     counted on. ``cuda_pre``'s pieces are whole transpose groups,
     packed-transposed into the slots and shipped as plane tiles; the
-    others' fall on multiples of 8 words. A column of 0 words launches
+    others' fall on multiples of 8 words. A column that ``ships_direct``
+    ships its pieces from its own memory, and the call returns once the
+    last of those copies has completed. A column of 0 words launches
     nothing."""
     if not columns:
         return
@@ -318,6 +344,8 @@ def stage(columns) -> None:
     rows = K.packed_rows_for(tally.report) if tally.impl == "cuda_pre" else None
     granule = K.GROUP_WORDS if rows else 8
     step = max(STAGE_WORDS // granule, 1) * granule
+    direct = [ships_direct(w, t.impl, t.device) for w, t in columns]
+    last = {}     # each ring's last copy from a caller's memory
     with _LOCK:
         rings = [ring(t.device) for _, t in columns]
         for i, a, b in _pieces(columns, step):
@@ -333,12 +361,21 @@ def stage(columns) -> None:
                                              out=tiles.reshape(groups, len(rows), K.SUB, K.LANE))
                 shipped = r.ship(slot, 2 * tiles.size).view(torch.int32).view(
                     groups, len(rows), K.SUB, K.LANE)
+            elif direct[i]:
+                shipped = r.ship(slot, b - a, src=piece)
+                last[r] = r.copied[slot]
+                STAGED["direct"] += 1
             else:
                 _copy_in(r.host[slot][:b - a], piece)
                 shipped = r.ship(slot, b - a)
             columns[i][1].add(shipped)
             r.release(slot)
             STAGED["pieces"] += 1
+        # a ring's side stream runs its copies in order: its last one from
+        # a caller's memory completes after all the others
+        for done in last.values():
+            if done is not None:
+                done.synchronize()
         STAGED["columns"] += len(columns)
 
 
@@ -348,24 +385,27 @@ def count_piece(words: torch.Tensor, dev: torch.device, mode: str) -> np.ndarray
     one native call (``kernels.flagstat_count``, ``mode`` ``"flagstat"``
     or ``"flagstat_report"``) -> (32,) uint64. The column is copied into
     the next slot of ``dev``'s ring once the copy that last read it has
-    completed (``_Ring.acquire``; span ``lfs.stage.copy_in``); the call
-    copies the slot to its device twin behind the twin's last reader and
-    counts it there. The lock is held until the call's wait returns, and
-    the wait covers the copy and the count: the slot and its twin are
-    then free. Counts one column and, unless it is empty, one piece in
-    ``STAGED``."""
+    completed (``_Ring.acquire``; span ``lfs.stage.copy_in``), or, when
+    it ``ships_direct``, read from its own address; the call copies the
+    slot or the column to the slot's device twin behind the twin's last
+    reader and counts it there. The lock is held until the call's wait
+    returns, and the wait covers the copy and the count: the slot, its
+    twin and the caller's memory are then free. Counts one column and,
+    unless it is empty, one piece (and one direct piece) in ``STAGED``."""
     n = words.numel()
+    direct = bool(n) and ships_direct(words, "cuda", dev)
     with _LOCK:
         r = ring(dev)
         slot = r.acquire()
         host, twin = r.host[slot], r.dev[slot]
-        if n:
+        if n and not direct:
             _copy_in(host[:n], words)
-        counts = K.flagstat_count(dev, mode, twin.data_ptr(), n, host.data_ptr(),
-                                  r.consumed[slot])
+        src = words.data_ptr() if direct else host.data_ptr()
+        counts = K.flagstat_count(dev, mode, twin.data_ptr(), n, src, r.consumed[slot])
         r.copied[slot] = r.consumed[slot] = None
         STAGED["columns"] += 1
         STAGED["pieces"] += bool(n)
+        STAGED["direct"] += direct
     return counts
 
 

@@ -188,7 +188,7 @@ def test_a_card_tensor_within_the_cap_is_one_call(card, impl, n):
                         done=DONE, stream=STREAM)
     s = card.scratch(torch.device("cuda", 0))
     assert (call["acc"], call["out"], call["host"]) == s.ptrs[:3] and s.done.waits == 1
-    assert one == {"calls": 1} and staged == {"columns": 0, "pieces": 0}
+    assert one == {"calls": 1} and staged == {"columns": 0, "pieces": 0, "direct": 0}
     assert {k: v for k, v in launches.items() if v} == (
         {mode: 1, "epilogue": 1} if n else {"epilogue": 1})
 
@@ -211,7 +211,8 @@ def test_a_host_column_within_a_piece_is_one_call_through_a_ring_slot(card, impl
     assert call["consumed"] is None and call["stream"] == STREAM
     assert r.next == (slot + 1) % ST.DEPTH
     assert r.copied[slot] is None and r.consumed[slot] is None
-    assert one == {"calls": 1} and staged == {"columns": 1, "pieces": int(n > 0)}
+    assert one == {"calls": 1}
+    assert staged == {"columns": 1, "pieces": int(n > 0), "direct": 0}
     assert {k: v for k, v in launches.items() if v} == (
         {mode: 1, "epilogue": 1} if n else {"epilogue": 1})
 
@@ -429,10 +430,11 @@ def test_card_counts_equal_the_oracle(cuda, impl):
         got, (one, launches, staged) = counted(lambda: L.flagstats_u16(x, impl=impl))
         check(got, x, impl)
         if n <= ST.STAGE_WORDS:
-            assert one == {"calls": 1} and staged == {"columns": 1, "pieces": int(n > 0)}
+            assert one == {"calls": 1}
+            assert staged == {"columns": 1, "pieces": int(n > 0), "direct": 0}
             assert launches[mode] == int(n > 0) and launches["epilogue"] == 1, (n, launches)
         else:
-            assert one == {"calls": 0} and staged == {"columns": 1, "pieces": 2}
+            assert one == {"calls": 0} and staged == {"columns": 1, "pieces": 2, "direct": 0}
     x = generate_flags(1 << 20, seed=7, full_range=True)
     xd = torch.from_numpy(x.view(np.int16)).to(cuda)
     for a, b in ((1, 1 << 20), (3, 777_777), (5, 6)):
