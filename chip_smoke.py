@@ -1094,7 +1094,8 @@ def launches_by_card():
 def drive_sharded_cards(na_words: np.ndarray, want: np.ndarray, cards: int, card: str) -> None:
     """Phase 4h (iv), on a host with two or more cards: flagstat_sharded
     over every card, NA12878 resident as one shard a card (the list form:
-    one K1 a card, a peer copy a card past the first, one epilogue) and
+    one K1 a card, a peer copy a card past the first, one epilogue; with
+    impl "cuda" in two native calls) and
     the host column staged across the cards' rings (a K1 a piece on each
     card), each against the oracle with its launches per card, then the
     walls beside one card's: the resident shards against the whole column
@@ -1107,17 +1108,22 @@ def drive_sharded_cards(na_words: np.ndarray, want: np.ndarray, cards: int, card
     for d in devs:
         torch.cuda.synchronize(d)
     for impl, report in (("cuda", False), ("cuda", True), ("cuda_words", False)):
+        mode = "flagstat_report" if report else "flagstat"
         before, epilogues = dict(SH.SHARDED), K.LAUNCHES["epilogue"]
+        one, k1 = SH.ONE_CALL["calls"], K.LAUNCHES[mode]
         with launches_by_card() as per_card:
             c = L.flagstat_sharded(shards, impl=impl, report=report)
         check_na12878(c, want, f"{cards} resident shards {impl} report={report}", report)
         assert K.LAUNCHES["epilogue"] - epilogues == 1
         assert SH.SHARDED["peer_copies"] - before["peer_copies"] == cards - 1
         if impl == "cuda":
-            assert per_card == {i: 1 for i in range(cards)}, per_card
+            # two native calls: a K1 (K3) a card, none through the wrapper
+            assert SH.ONE_CALL["calls"] - one == 1 and per_card == {}, per_card
+            assert K.LAUNCHES[mode] - k1 == cards
+        k1s = (f"{cards} in two native calls" if impl == "cuda" else f"by card {per_card}")
         print(f"[{card}] main path (h-iv): flagstat_sharded(NA12878 as {cards} resident shards, "
-              f"impl={impl!r}, report={report}) = na12878_report_values(1); K1 launches by "
-              f"card {per_card}, 1 epilogue, {cards - 1} peer copies")
+              f"impl={impl!r}, report={report}) = na12878_report_values(1); K1 launches {k1s}, "
+              f"1 epilogue, {cards - 1} peer copies")
     pieces = {i: pieces_of(b - a) for i, (a, b) in enumerate(bounds)}
     with launches_by_card() as per_card:
         c = L.flagstat_sharded(na_words, devices=devs)

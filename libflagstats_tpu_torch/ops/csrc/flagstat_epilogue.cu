@@ -28,6 +28,13 @@
 // copied with cudaMemcpyAsync into that (pinned) host buffer and `done`
 // is recorded after the copy, so the caller synchronises once, on that
 // event, and reads the counters.
+//
+// The merge-epilogue kernel ends a count sharded over cards
+// (parallel/sharded.py, lfs_sharded_merge): the other cards' accumulators
+// lie as rows of one buffer on card 0, and each entry the map reads is
+// summed over card 0's accumulator and the rows before the same
+// arithmetic, so the merge and the epilogue are one launch (it reads at
+// most 30 entries of each of k accumulators).
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -36,12 +43,14 @@
 
 namespace {
 
-__global__ void epilogue_kernel(const long long* __restrict__ acc, long long* __restrict__ out,
-                                EpilogueMap m, long long n, int counters) {
-  const int k = threadIdx.x;
-  if (k >= 16) return;
-  const long long c = (m.c[k] >= 0 ? acc[m.c[k]] : 0) + (m.c2[k] >= 0 ? acc[m.c2[k]] : 0);
-  const long long f = m.f[k] >= 0 ? acc[m.f[k]] : 0;
+// One FLAG bit k of the epilogue: C[k] = read(c[k]) + read(c2[k]) and
+// F[k] = read(f[k]), `read` giving an accumulator entry (0 for index -1),
+// written in the form `counters` asks for.
+template <class Read>
+__device__ __forceinline__ void epilogue_bit(int k, Read read, long long* __restrict__ out,
+                                             const EpilogueMap& m, long long n, int counters) {
+  const long long c = read(m.c[k]) + read(m.c2[k]);
+  const long long f = read(m.f[k]);
   if (!counters) {
     out[k] = c;
     out[16 + k] = f;
@@ -52,6 +61,31 @@ __global__ void epilogue_kernel(const long long* __restrict__ acc, long long* __
     out[k] = c - f;
     out[16 + k] = f;
   }
+}
+
+__global__ void epilogue_kernel(const long long* __restrict__ acc, long long* __restrict__ out,
+                                EpilogueMap m, long long n, int counters) {
+  const int k = threadIdx.x;
+  if (k >= 16) return;
+  epilogue_bit(k, [acc](int i) { return i >= 0 ? acc[i] : 0LL; }, out, m, n, counters);
+}
+
+// The merge of a sharded count and its epilogue in one launch: each
+// entry the map reads is card 0's accumulator `acc` plus the same entry
+// of each of the `peers` rows (the other cards' sums, `stride` apart),
+// and the 32 counters of n words are written from those totals.
+__global__ void merge_epilogue_kernel(const long long* __restrict__ acc,
+                                      const long long* __restrict__ rows, int peers, int stride,
+                                      long long* __restrict__ out, EpilogueMap m, long long n) {
+  const int k = threadIdx.x;
+  if (k >= 16) return;
+  auto total = [=](int i) {
+    if (i < 0) return 0LL;
+    long long v = acc[i];
+    for (int p = 0; p < peers; ++p) v += rows[(long long)p * stride + i];
+    return v;
+  };
+  epilogue_bit(k, total, out, m, n, 1);
 }
 
 }  // namespace
@@ -75,6 +109,34 @@ int lfs_epilogue(int device, const void* acc, void* out, EpilogueMap map, long l
   if (e == cudaSuccess && host)
     e = cudaMemcpyAsync(host, out, 32 * sizeof(long long), cudaMemcpyDeviceToHost, s);
   if (e == cudaSuccess && done) e = cudaEventRecord(static_cast<cudaEvent_t>(done), s);
+  return e;
+}
+
+// The end of a sharded count on `device`, card 0 (made current for the
+// call), enqueued on its `stream`: a wait on each of the `peers` events
+// (each recorded on another card after its sums' copy into `rows`), one
+// launch of the merge-epilogue kernel, which adds card 0's accumulator
+// `acc` and the rows (int64[peers][stride]) and writes the 32 counters of
+// n words into `out` (int64[32] on the device), the copy of `out` into
+// `host` (pinned int64[32]) and the record of the event `done`. Nothing
+// waits: the caller synchronises on `done`. Returns a cudaError_t.
+int lfs_sharded_merge(int device, const void* acc, const void* rows, int peers, int stride,
+                      EpilogueMap map, long long n, void* out, void* host,
+                      void* const* events, void* done, void* stream) {
+  lfs::DeviceScope scope(device);
+  if (scope.status != cudaSuccess) return scope.status;
+  auto s = static_cast<cudaStream_t>(stream);
+  for (int p = 0; p < peers; ++p) {
+    const cudaError_t e = cudaStreamWaitEvent(s, static_cast<cudaEvent_t>(events[p]), 0);
+    if (e != cudaSuccess) return e;
+  }
+  merge_epilogue_kernel<<<1, 32, 0, s>>>(static_cast<const long long*>(acc),
+                                          static_cast<const long long*>(rows), peers, stride,
+                                          static_cast<long long*>(out), map, n);
+  cudaError_t e = cudaGetLastError();
+  if (e == cudaSuccess)
+    e = cudaMemcpyAsync(host, out, 32 * sizeof(long long), cudaMemcpyDeviceToHost, s);
+  if (e == cudaSuccess) e = cudaEventRecord(static_cast<cudaEvent_t>(done), s);
   return e;
 }
 

@@ -258,4 +258,45 @@ int lfs_flagstat_count(int device, int mode, const void* src, long long n, void*
   }
 }
 
+// The counts of a column sharded over k >= 2 different cards, enqueued
+// by one call: first, for each card i in order, made current, on its
+// stream streams[i], the launcher of lfs_stream_sums over the n[i] words
+// at words[i] in mode kFlagstat (K1) or kReport (K3), zeroing its
+// accumulator accs[i] (int64, the mode's sums) and adding into it on the
+// grid cache's wave (the memset alone for n[i] = 0), so that every card
+// counts before the host enqueues anything else; then, for each card
+// i >= 1, on the same stream, the peer copy of those sums into row i - 1
+// of `rows` (int64[k - 1][the mode's sums] on card devices[0]) and the
+// record of the event events[i - 1]. lfs_sharded_merge ends the count on
+// card 0. Nothing waits; the caller's current device is restored.
+// Returns a cudaError_t.
+int lfs_sharded_counts(int k, int mode, const int* devices, const void* const* words,
+                       const long long* n, void* const* accs, void* rows,
+                       void* const* events, void* const* streams) {
+  if (k < 2 || (mode != kFlagstat && mode != kReport)) return cudaErrorInvalidValue;
+  const size_t bytes = (mode == kFlagstat ? Streams<kFlagstat>::n : Streams<kReport>::n) *
+                       sizeof(unsigned long long);
+  DeviceScope scope(devices[0]);
+  if (scope.status != cudaSuccess) return scope.status;
+  for (int i = 0; i < k; ++i) {
+    auto s = static_cast<cudaStream_t>(streams[i]);
+    auto* acc = static_cast<unsigned long long*>(accs[i]);
+    cudaError_t e = i ? cudaSetDevice(devices[i]) : cudaSuccess;
+    if (e == cudaSuccess)
+      e = mode == kFlagstat ? launch<kFlagstat>(devices[i], words[i], n[i], acc, 0, 1, s)
+                            : launch<kReport>(devices[i], words[i], n[i], acc, 0, 1, s);
+    if (e != cudaSuccess) return e;
+  }
+  for (int i = k - 1; i >= 1; --i) {  // the last card is current
+    auto s = static_cast<cudaStream_t>(streams[i]);
+    cudaError_t e = i < k - 1 ? cudaSetDevice(devices[i]) : cudaSuccess;
+    if (e == cudaSuccess)
+      e = cudaMemcpyPeerAsync(static_cast<char*>(rows) + (i - 1) * bytes, devices[0], accs[i],
+                              devices[i], bytes, s);
+    if (e == cudaSuccess) e = cudaEventRecord(static_cast<cudaEvent_t>(events[i - 1]), s);
+    if (e != cudaSuccess) return e;
+  }
+  return cudaSuccess;
+}
+
 }  // extern "C"

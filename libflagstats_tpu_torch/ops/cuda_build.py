@@ -91,6 +91,8 @@ def build() -> Path:
 
 
 _VP, _I64, _I32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
+#: arrays of one entry per card (``lfs_sharded_counts``, ``lfs_sharded_merge``)
+_VPS, _I64S, _I32S = (ctypes.POINTER(t) for t in (_VP, _I64, _I32))
 #: every entry of the library and its arguments; each returns an int (a
 #: cudaError_t, or the constant it names). The launchers take the device
 #: ordinal first and the stream last (``kernels.launch``).
@@ -101,6 +103,8 @@ ENTRIES = {
     "lfs_epilogue": [_I32, _VP, _VP, EpilogueMap, _I64, _I32, _VP, _VP, _VP],
     "lfs_flagstat_count": [_I32, _I32, _VP, _I64, _VP, _VP, _VP, EpilogueMap, _VP, _VP, _VP,
                            _VP],
+    "lfs_sharded_counts": [_I32, _I32, _I32S, _VPS, _I64S, _VPS, _VP, _VPS, _VPS],
+    "lfs_sharded_merge": [_I32, _VP, _VP, _I32, _I32, EpilogueMap, _I64, _VP, _VP, _VPS, _VP, _VP],
     "lfs_setop_count_cuda": [_I32, _I32, _VP, _VP, _I64, _VP, _VP],
     "lfs_read_xor": [_I32, _VP, _I64, _VP, _VP],
     "lfs_transpose_xor": [_I32, _VP, _I64, _I32, _VP, _VP],

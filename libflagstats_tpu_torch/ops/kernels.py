@@ -328,17 +328,23 @@ def raw_stream(dev: torch.device) -> int:
     return torch._C._cuda_getCurrentRawStream(dev.index)
 
 
+def native(entry: str, key: str, *args) -> None:
+    """Call the native entry ``entry`` (ops/csrc) with ``args``. Raises
+    RuntimeError naming ``entry`` and ``key`` (a ``LAUNCHES`` key) on a
+    nonzero return (a cudaError_t)."""
+    err = getattr(cuda_build.load(), entry)(*args)
+    if err:
+        raise RuntimeError(f"{entry} ({key}) failed: cudaError {err}")
+
+
 def launch(entry: str, key: str, dev: torch.device, *args, ran: bool = True) -> None:
     """Call the native launcher ``entry`` (ops/csrc) for the kernel
     ``key`` (a ``LAUNCHES`` key) on the CUDA device ``dev``: ``dev``'s
     ordinal first, which the launcher makes current for the call, then
-    ``args``, then the handle of ``dev``'s current stream (``raw_stream``).
-    Raises RuntimeError naming ``entry`` and ``key`` on a nonzero return
-    (a cudaError_t). Counts ``LAUNCHES[key]`` when ``ran``: the call
+    ``args``, then the handle of ``dev``'s current stream (``raw_stream``),
+    through ``native``. Counts ``LAUNCHES[key]`` when ``ran``: the call
     enqueued a kernel of ``key``."""
-    err = getattr(cuda_build.load(), entry)(dev.index, *args, raw_stream(dev))
-    if err:
-        raise RuntimeError(f"{entry} ({key}) failed: cudaError {err}")
+    native(entry, key, dev.index, *args, raw_stream(dev))
     if ran:
         LAUNCHES[key] += 1
 

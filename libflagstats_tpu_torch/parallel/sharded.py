@@ -21,6 +21,17 @@ the deployment that keeps a column sharded across the cards. Either way
 every device's count is enqueued before anything waits, so the cards
 count at once.
 
+A list-form count with impl ``"cuda"`` (either mode) over two or more
+shards, each on a different card and within DEVICE_WORD_CAP (one round),
+is two native calls and one wait (``_native_cards``, ``_Native``):
+``lfs_sharded_counts`` enqueues, card by card, the accumulator's memset
+and K1 (K3), then each other card's peer copy of its sums into a row of
+one buffer on the first card and an event; ``lfs_sharded_merge`` makes
+the first card's stream wait on those events and launches one
+merge-epilogue kernel, which adds the rows into the first card's sums
+and writes the 32 counters, then copies them into a pinned buffer.
+Every other count keeps the path above.
+
 A host column's shards are counted through the staging rings
 (``ops/staging.py``), one ring per device: the shards' pieces are
 taken in turn across the devices, so copies to different cards
@@ -30,6 +41,7 @@ host, so its shards always go through the rings.
 """
 from __future__ import annotations
 
+import ctypes
 import threading
 
 import numpy as np
@@ -93,6 +105,8 @@ def _check_impl(impl: str) -> None:
 #: copied onto the first shard's device to merge (counted where each
 #: happens and nowhere else)
 SHARDED = {"calls": 0, "shards": 0, "peer_copies": 0}
+#: flagstat_sharded calls counted in two native calls (``_Native``)
+ONE_CALL = {"calls": 0}
 
 
 def _device(d) -> torch.device:
@@ -195,6 +209,108 @@ def _shard_words(shards) -> list[torch.Tensor]:
     return out
 
 
+def _card(shard: torch.Tensor) -> torch.device | None:
+    """The CUDA device ``shard`` lies on, or None."""
+    return shard.device if shard.device.type == "cuda" else None
+
+
+def _native_cards(shards, impl: str) -> list[torch.device] | None:
+    """The cards of a list-form count that is two native calls, or None
+    for the general path: impl ``"cuda"``, two or more shards, each on a
+    different CUDA device and within DEVICE_WORD_CAP (one round)."""
+    if impl != "cuda" or len(shards) < 2:
+        return None
+    cards = [_card(s) for s in shards]
+    if None in cards or len(set(cards)) < len(cards):
+        return None
+    if any(s.numel() > D.DEVICE_WORD_CAP for s in shards):
+        return None
+    return cards
+
+
+def _card_buffers(cards, sums: int) -> tuple[torch.Tensor, list]:
+    """(rows, events) of a native count over ``cards``: an int64 buffer of
+    the other cards' ``sums`` sums, a row each, on the first card, and a
+    timing-free event made on each other card. Peer access is torch's, as
+    on the general path: it enables it at its first cross-card copy, here
+    of each other card's accumulator into its row."""
+    rows = torch.empty((len(cards) - 1, sums), dtype=torch.int64, device=cards[0])
+    events = []
+    for row, dev in zip(rows, cards[1:]):
+        row.copy_(K.scratch(dev).acc[:sums])
+        event = torch.cuda.Event()
+        event.record(torch.cuda.current_stream(dev))   # made on dev
+        events.append(event)
+    for dev in cards:
+        torch.cuda.synchronize(dev)
+    return rows, events
+
+
+class _Native:
+    """One thread's native count over one tuple of cards in one mode
+    (``"flagstat"``; ``"flagstat_report"``: K3): each card's accumulator
+    is its ``kernels.scratch``'s, the first card's scratch takes the
+    counters (its out, pinned buffer and event ``done``), and
+    ``_card_buffers`` gives the rows and the other cards' events. The
+    ctypes arrays the entries take are built once; a call fills only the
+    shards' addresses, lengths and streams.
+
+    The hazards are the general path's: a card's next memset is enqueued
+    behind its own peer copy on its stream, and the rows are rewritten
+    only after this call's wait, which follows the merge's read of them."""
+
+    def __init__(self, cards, mode: str):
+        k, sums = len(cards), K.RAW_STREAMS[mode]
+        self.cards, self.mode = cards, mode
+        self.first = K.scratch(cards[0])
+        self.rows, self.events = _card_buffers(cards, sums)
+        self.ordinals = (ctypes.c_int * k)(*(d.index for d in cards))
+        self.accs = (ctypes.c_void_p * k)(*(K.scratch(d).acc.data_ptr() for d in cards))
+        self.peer_events = (ctypes.c_void_p * (k - 1))(*(e.cuda_event for e in self.events))
+        self.words = (ctypes.c_void_p * k)()
+        self.n = (ctypes.c_int64 * k)()
+        self.streams = (ctypes.c_void_p * k)()
+        self.counts = (k, K._MODE_ID[mode], self.ordinals, self.words, self.n, self.accs,
+                       self.rows.data_ptr(), self.peer_events, self.streams)
+        self.merge = (self.first.acc.data_ptr(), self.rows.data_ptr(), k - 1, sums,
+                      K._map_arg(mode))
+        self.readback = (self.first.out.data_ptr(), self.first.host.data_ptr(),
+                         self.peer_events, self.first.done.cuda_event)
+
+    def count(self, shards, n: int) -> np.ndarray:
+        """The 32 counters of the shards' ``n`` words (uint64): the
+        counts (span ``lfs.launch``, none for 0 words), the merge (span
+        ``lfs.shard.merge``) and one wait (span ``lfs.readback``). Counts
+        a K1 (K3) launch a shard that is not empty and one epilogue in
+        ``LAUNCHES``."""
+        ran = 0
+        for i, (s, dev) in enumerate(zip(shards, self.cards)):
+            self.words[i] = s.data_ptr()
+            self.n[i] = m = s.numel()
+            self.streams[i] = K.raw_stream(dev)
+            ran += m > 0
+        with profiling.span("lfs.launch", mode=self.mode, words=n) if n else profiling.NOOP:
+            K.native("lfs_sharded_counts", self.mode, *self.counts)
+        K.LAUNCHES[self.mode] += ran
+        with profiling.span("lfs.shard.merge", peers=len(self.cards) - 1):
+            K.launch("lfs_sharded_merge", "epilogue", self.cards[0], *self.merge, n,
+                     *self.readback)
+        with profiling.span("lfs.readback"):
+            self.first.done.synchronize()
+            return self.first.host_np.astype(np.uint64)
+
+
+def _native(cards, report: bool) -> _Native:
+    """This thread's ``_Native`` over ``cards`` in the mode ``report``
+    asks for, kept beside its tallies for its next such count."""
+    key = (tuple(cards), report)
+    kept = getattr(_KEPT, "native", None)
+    if kept is None or kept[0] != key:
+        kept = _KEPT.native = (key, _Native(cards, "flagstat_report" if report
+                                            else "flagstat"))
+    return kept[1]
+
+
 def _is_shards(x) -> bool:
     """Whether ``x`` is the list form: a list or tuple holding tensors."""
     return isinstance(x, (list, tuple)) and any(isinstance(s, torch.Tensor) for s in x)
@@ -215,7 +331,10 @@ def flagstat_sharded(x, devices=None, impl: str | None = None,
     SHARDED_IMPLS; None follows ``ops.dispatch.device_impl`` of the first
     device. ``report=True`` counts the 21 report streams on ``"cuda"``
     and ``"cuda_pre"`` (only flags.REPORT_COUNTERS are kept); the other
-    impls count all 32 counters either way. Span
+    impls count all 32 counters either way. Shards with impl ``"cuda"``,
+    two or more, each on a different card and within DEVICE_WORD_CAP,
+    are counted in two native calls and one wait (``_native_cards``;
+    ``ONE_CALL``); any other count takes the general path. Span
     ``lfs.flagstat_sharded``, args shards, words and impl."""
     with profiling.span("lfs.flagstat_sharded") as call:
         if _is_shards(x):
@@ -233,6 +352,14 @@ def flagstat_sharded(x, devices=None, impl: str | None = None,
             impl = D.device_impl(devs[0])
         _check_impl(impl)
         call.note(shards=len(devs), words=n, impl=impl)
+        cards = None if column is not None else _native_cards(shards, impl)
+        if cards is not None:
+            counts = _native(cards, report).count(shards, n)
+            ONE_CALL["calls"] += 1
+            SHARDED["calls"] += 1
+            SHARDED["shards"] += len(cards)
+            SHARDED["peer_copies"] += len(cards) - 1
+            return counts
         tallies = _tallies(devs, impl, report)
         if column is not None:
             _count_column(column, tallies, impl)

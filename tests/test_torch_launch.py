@@ -16,6 +16,7 @@ from libflagstats_tpu_torch.ops import lz4_decode as Z
 from libflagstats_tpu_torch.ops import probe_kernels as P
 from libflagstats_tpu_torch.ops import setalgebra as S
 from libflagstats_tpu_torch.ops import words_kernels as W
+from libflagstats_tpu_torch.parallel import sharded as SH
 
 STREAM = 0x5EED       # the raw stream handle the fake world hands out
 DEVICE = 3            # the fake card's ordinal
@@ -36,6 +37,7 @@ WRAPPERS = {
     P.stream_sums_raw_cuda: ("lfs_stream_sums_raw", "raw"),
     P.fold_xor_cuda: ("lfs_fold_xor", "fold_xor"),
     Z.decode_frames: ("lfs_lz4_decode", "lz4_decode"),
+    SH._Native.count: ("lfs_sharded_merge", "epilogue"),
 }
 
 
@@ -84,7 +86,8 @@ def test_launch_passes_the_ordinal_first_and_the_stream_last(lib, wrapper):
     assert len(lib.calls) == 3 and K.LAUNCHES[key] == before + 1
 
 
-@pytest.mark.parametrize("module", [K, W, P, S, Z], ids=lambda m: m.__name__.rsplit(".", 1)[-1])
+@pytest.mark.parametrize("module", [K, W, P, S, Z, SH],
+                         ids=lambda m: m.__name__.rsplit(".", 1)[-1])
 def test_no_launch_site_keeps_a_device_guard_or_a_stream_object(module):
     source = inspect.getsource(module)
     assert "torch.cuda.device(" not in source and ".cuda_stream" not in source
@@ -102,9 +105,11 @@ def test_wave_blocks_reads_the_one_cache_by_key(lib):
 
 def test_the_table_declares_the_launchers_and_the_queries():
     """Every wrapper's entry is in the one table; beside them only the
-    grid query and the kernels' constants."""
+    grid query, the kernels' constants and the sharded counts' entry,
+    which takes an ordinal and a stream a card (``kernels.native``)."""
     launchers = {entry for entry, _ in WRAPPERS.values()}
     assert set(cuda_build.ENTRIES) - launchers == {"lfs_wave_blocks", "lfs_words_per_block",
                                                    "lfs_words_block_words",
-                                                   "lfs_words_flush_bodies"}
+                                                   "lfs_words_flush_bodies",
+                                                   "lfs_sharded_counts"}
     assert launchers <= set(cuda_build.ENTRIES)
